@@ -1,4 +1,4 @@
-"""Batched 8B int8 decode throughput on one v5e chip.
+"""Batched 8B int8 decode throughput on one device.
 
 bs=1 decode streams 8 GB of weights per token — the batch dimension amortizes
 that stream across rows, which is exactly what the continuous-batching engine
@@ -20,8 +20,9 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    from slime_tpu.config import LLMConfig
-    from slime_tpu.models import llama
+    from slime_jax.utils import device_description
+    from slime_jax.config import LLMConfig
+    from slime_jax.models import llama
 
     cfg = LLMConfig.llama3_8b()
     rng = np.random.default_rng(0)
@@ -77,8 +78,8 @@ def main():
             "metric": f"slime8b_int8_decode_tok_per_sec_bs{B}",
             "value": round(B / per_tok, 1),
             "unit": (f"aggregate tok/s (bs={B}, 512-token context, int8 "
-                     f"weight-only, one v5e; {per_tok * 1e3:.2f} ms/step)"),
-            "vs_baseline": None}), flush=True)
+                     f"weight-only; {per_tok * 1e3:.2f} ms/step)"),
+            "device": device_description()}), flush=True)
 
 
 if __name__ == "__main__":

@@ -1,4 +1,4 @@
-"""QLoRA-DPO at the full Llama-3-8B architecture on ONE v5e chip.
+"""QLoRA-DPO at the full Llama-3-8B architecture on one device.
 
 The training-cost profile of train/dpo.py at true scale: DPO needs TWO model
 evaluations per step (policy with gradients, frozen reference without), and
@@ -28,11 +28,12 @@ def main():
     import jax.numpy as jnp
     import optax
 
-    from slime_tpu.config import LLMConfig
-    from slime_tpu.models import llama
-    from slime_tpu.ops.loss import chunked_sequence_logp
-    from slime_tpu.train import lora as lora_lib
-    from slime_tpu.train.dpo import dpo_losses
+    from slime_jax.utils import bf16_peak_flops, device_description
+    from slime_jax.config import LLMConfig
+    from slime_jax.models import llama
+    from slime_jax.ops.loss import chunked_sequence_logp
+    from slime_jax.train import lora as lora_lib
+    from slime_jax.train.dpo import dpo_losses
 
     bits = int(os.environ.get("SLIME_DPO_BITS", "4"))
     r = int(os.environ.get("SLIME_DPO_R", "64"))
@@ -153,15 +154,15 @@ def main():
     k_head = rows * S * V * H
     k_attn = rows * S * S * (cfg.num_heads * HD) * 2
     flops = 8 * k_lin + 8 * k_head + 7 * k_attn
-    mfu = flops / dt / 197e12
+    mfu = flops / dt / bf16_peak_flops(jax.devices()[0].device_kind)
     print(json.dumps({
         "metric": f"dpo8b_{'nf4' if bits == 4 else 'int8'}_step_ms",
         "value": round(dt * 1000, 1),
         "unit": (f"ms/step (Llama-3-8B arch QLoRA-DPO r={r}, {B} pair(s) x "
-                 f"{S} tok, single v5e chip; {rows * S / dt:.0f} pair-tok/s, "
+                 f"{S} tok; {rows * S / dt:.0f} pair-tok/s, "
                  f"~{mfu:.0%} MFU, loss {l0:.3f}->{lN:.3f}, "
                  f"margin {float(jnp.mean(margin)):+.4f})"),
-        "vs_baseline": None,
+        "device": device_description(),
     }))
 
 

@@ -1,4 +1,4 @@
-"""QLoRA fine-tuning of the full Llama-3-8B architecture on ONE v5e chip.
+"""QLoRA fine-tuning of the full Llama-3-8B architecture on one device.
 
 The reference's kbit-base + PEFT path (llava/train/train.py:956-972 +
 1036-1052) needs an A100-80G for 8B LoRA SFT (reference README.md:199). Here
@@ -31,10 +31,11 @@ def main():
     import jax.numpy as jnp
     import optax
 
-    from slime_tpu.config import LLMConfig
-    from slime_tpu.models import llama
-    from slime_tpu.ops.loss import chunked_ce_mean
-    from slime_tpu.train import lora as lora_lib
+    from slime_jax.utils import bf16_peak_flops, device_description
+    from slime_jax.config import LLMConfig
+    from slime_jax.models import llama
+    from slime_jax.ops.loss import chunked_ce_mean
+    from slime_jax.train import lora as lora_lib
 
     bits = int(os.environ.get("SLIME_QLORA_BITS", "4"))
     r = int(os.environ.get("SLIME_QLORA_R", "64"))
@@ -141,14 +142,14 @@ def main():
     k_head = B * S * V * H
     k_attn = B * S * S * (cfg.num_heads * HD) * 2  # qk + av
     flops = 6 * k_lin + 6 * k_head + 5 * k_attn
-    mfu = flops / dt / 197e12
+    mfu = flops / dt / bf16_peak_flops(jax.devices()[0].device_kind)
     print(json.dumps({
         "metric": f"qlora8b_{'nf4' if bits == 4 else 'int8'}_step_ms",
         "value": round(dt * 1000, 1),
         "unit": (f"ms/step (Llama-3-8B arch QLoRA r={r}, bs={B}x{S} tok, "
-                 f"single v5e chip; {B * S / dt:.0f} tok/s, "
+                 f"{B * S / dt:.0f} tok/s, "
                  f"~{mfu:.0%} MFU, loss {l0:.3f}->{lN:.3f})"),
-        "vs_baseline": None,
+        "device": device_description(),
     }))
 
 

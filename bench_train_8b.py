@@ -1,20 +1,15 @@
-"""Training throughput on ONE v5e chip — the headline the reference never
+"""Training throughput on one device — the number the reference never
 publishes (its training setup is 8x A100-80G, reference README.md:199, with
 zero recorded step times).
 
 Two modes (SLIME_TRAIN_MODE):
 
   full (default) — full-parameter bf16 AdamW training of a Llama-architecture
-    model at the widest vocab-true config that fits a 16 GB chip with
-    optimizer state resident (H=2048, L=10, I=5632, V=128256 — ~1.0 B params,
-    ~12 GB of param+grad+moment state). Layer stack as one lax.scan block,
-    full-layer remat (the reference's gradient_checkpointing), chunked CE
-    (ops/loss.py — never materializes [B, S, V] logits). Reports ms/step,
-    tokens/s/chip, and MFU; vs_baseline brackets the reference stack
-    (HF Trainer + DeepSpeed ZeRO + flash-attn-2 on A100-80G bf16, 312 TFLOPs
-    peak) at 25-40% MFU — the published range for HF/DeepSpeed-class trainers;
-    identical arch => identical FLOPs/token, so the ratio reduces to
-    (our MFU x 197) / (ref MFU x 312).
+    model with vocab-true widths (H=2048, L=10, I=5632, V=128256 — ~1.0 B
+    params, ~12 GB of param+grad+moment state). Layer stack as one lax.scan
+    block, full-layer remat (the reference's gradient_checkpointing), chunked
+    CE (ops/loss.py — never materializes [B, S, V] logits). Reports ms/step,
+    tokens/s, and MFU against the device's bf16 peak (utils.BF16_PEAK_FLOPS).
 
   pipeline — the INPUT-PIPELINE measurement (VERDICT r3 #3): A/B the same
     multimodal train step (CLIP-L vision tower + gated projector + sampler +
@@ -38,10 +33,6 @@ import time
 
 import numpy as np
 
-V5E_PEAK = 197e12
-A100_PEAK = 312e12
-REF_MFU_GENEROUS = 0.40      # well-tuned DeepSpeed+flash-attn2 run
-REF_MFU_PESSIMISTIC = 0.25   # typical HF Trainer + ZeRO-3 with remat
 
 
 def bench_full():
@@ -49,9 +40,10 @@ def bench_full():
     import jax.numpy as jnp
     import optax
 
-    from slime_tpu.config import LLMConfig
-    from slime_tpu.models import llama
-    from slime_tpu.ops.loss import chunked_ce_mean
+    from slime_jax.utils import bf16_peak_flops, device_description
+    from slime_jax.config import LLMConfig
+    from slime_jax.models import llama
+    from slime_jax.ops.loss import chunked_ce_mean
 
     B = int(os.environ.get("SLIME_TRAIN_BS", "4"))
     S = int(os.environ.get("SLIME_TRAIN_SEQ", "2048"))
@@ -123,21 +115,15 @@ def bench_full():
     k_head = B * S * V * H
     k_attn = B * S * S * (cfg.num_heads * HD) * 2
     flops = 8 * k_lin + 8 * k_head + 5 * k_attn
-    mfu = flops / dt / V5E_PEAK
+    mfu = flops / dt / bf16_peak_flops(jax.devices()[0].device_kind)
     toks = B * S / dt
-    flops_per_tok = flops / (B * S)
-    ref_gen = REF_MFU_GENEROUS * A100_PEAK / flops_per_tok
-    ref_pes = REF_MFU_PESSIMISTIC * A100_PEAK / flops_per_tok
     print(json.dumps({
-        "metric": "train_full_bf16_tokens_per_sec_chip",
-        "value": round(toks, 0),
-        "unit": (f"tok/s/chip (full-param bf16 AdamW, {n_params/1e9:.2f}B "
-                 f"params V=128256, bs={B}x{S}, {dt*1000:.0f} ms/step, "
-                 f"~{mfu:.0%} MFU v5e; loss {l0:.3f}->{lN:.3f}; "
-                 f"ref-stack A100 est {ref_pes:.0f}-{ref_gen:.0f} tok/s/chip "
-                 f"at 25-40% MFU)"),
-        "vs_baseline": round(toks / ref_gen, 3),
-        "vs_baseline_pessimistic": round(toks / ref_pes, 3),
+        "metric": "train_full_bf16_tokens_per_sec",
+        "value": toks,
+        "unit": (f"tok/s (full-param bf16 AdamW, {n_params/1e9:.2f}B "
+                 f"params V=128256, bs={B}x{S}, {dt*1000:.1f} ms/step, "
+                 f"{mfu:.1%} MFU; loss {l0:.3f}->{lN:.3f})"),
+        "device": device_description(),
     }))
 
 
@@ -149,12 +135,13 @@ def bench_pipeline():
     import jax
     import jax.numpy as jnp
 
-    from slime_tpu.config import LLMConfig, SliMEConfig
-    from slime_tpu.constants import IGNORE_INDEX, IMAGE_TOKEN_INDEX
-    from slime_tpu.data.image_ops import process_anyres_image_host
-    from slime_tpu.models import slime
-    from slime_tpu.train.optim import TrainConfig
-    from slime_tpu.train.trainer import RunConfig, Trainer
+    from slime_jax.utils import device_description
+    from slime_jax.config import LLMConfig, SliMEConfig
+    from slime_jax.constants import IGNORE_INDEX, IMAGE_TOKEN_INDEX
+    from slime_jax.data.image_ops import process_anyres_image_host
+    from slime_jax.models import slime
+    from slime_jax.train.optim import TrainConfig
+    from slime_jax.train.trainer import RunConfig, Trainer
 
     B = int(os.environ.get("SLIME_TRAIN_BS", "2"))
     S = int(os.environ.get("SLIME_TRAIN_SEQ", "512"))
@@ -182,8 +169,7 @@ def bench_pipeline():
 
     MC = 1 + cfg.max_local_crops
     # SLIME_TRAIN_U8=1: uint8 pixel transport (normalize on device) — 1/4 the
-    # host->device pixel bytes; on tunnel/DCN hosts the transfer is the part
-    # of the input pipeline that can't hide behind the running step
+    # host->device pixel bytes
     u8 = os.environ.get("SLIME_TRAIN_U8", "0") == "1"
 
     def make_batch():
@@ -226,7 +212,7 @@ def bench_pipeline():
     dt_dev = (time.perf_counter() - t0) / steps
 
     # --- B: the real input pipeline, fresh host preprocessing every batch ---
-    from slime_tpu.data.dataset import Prefetcher
+    from slime_jax.data.dataset import Prefetcher
     pf = Prefetcher((make_batch() for _ in range(steps)), depth=2,
                     map_fn=lambda b: {k: jnp.asarray(v) for k, v in b.items()})
     t0 = time.perf_counter()
@@ -250,7 +236,7 @@ def bench_pipeline():
                  f"{dt_piped*1000:.0f} ms/step; host preprocess "
                  f"{host_ms:.0f} ms/batch 1 thread; queue-wait "
                  f"{pf.stall_s/wall:.2f} of wall; loss final {lN:.3f})"),
-        "vs_baseline": None,
+        "device": device_description(),
     }))
 
 

@@ -1,4 +1,4 @@
-// SliME-TPU native host preprocessing: anyres slice + resize + CLIP normalize.
+// SliME-JAX native host preprocessing: anyres slice + resize + CLIP normalize.
 //
 // Replaces the reference's per-sample PIL pipeline (llava/mm_utils.py:177-210 +
 // HF CLIPImageProcessor), which is the CPU hot path inside DataLoader workers
@@ -161,7 +161,7 @@ void quantize_into(const float* hwc, int h, int w, uint8_t* chw_out, int tile,
   }
 }
 
-// --- anyres grid selection (mirrors slime_tpu/data/anyres.py) -------------------
+// --- anyres grid selection (mirrors slime_jax/data/anyres.py) -------------------
 
 void candidate_grids(int scale, std::vector<std::pair<int, int>>& out) {
   int lo = scale <= 2 ? scale : scale - 1;

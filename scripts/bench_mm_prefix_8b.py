@@ -1,4 +1,4 @@
-"""Multimodal prefix cache: follow-up-turn TTFT at true 8B int8 on one chip.
+"""Multimodal prefix cache: follow-up-turn TTFT at true 8B int8 on one device.
 
 The multi-turn image-chat pattern (reference gradio flow,
 llava/serve/gradio_web_server.py:154-310: every turn re-sends the whole
@@ -18,7 +18,7 @@ image, measuring per-turn TTFT (submit -> first token), prefix-cache A/B:
 Env: SLIME_MMP_TEXT (64 = turn-1 text tokens), SLIME_MMP_EXTRA (48 = tokens
 added per turn), SLIME_MMP_NEW (8 = generated tokens per turn),
 SLIME_MMP_CACHE (4096), SLIME_MMP_TINY=1 for the CPU smoke shape
-(SLIME_PLATFORM=cpu). Prints one JSON line per scenario.
+(JAX_PLATFORMS=cpu). Prints one JSON line per scenario.
 """
 import json
 import os
@@ -30,46 +30,17 @@ import numpy as np
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
-def _int8_llm_params(cfg, rng):
-    """Pre-stacked int8 LLM params (bench.py method: int8 built on host)."""
-    import jax.numpy as jnp
-    import ml_dtypes
-    H, HD, I = cfg.hidden_size, cfg.head_dim, cfg.intermediate_size
-    L = cfg.num_layers
-
-    def q(out_d, in_d, label):
-        print(f"  {label}", file=sys.stderr, flush=True)
-        qv = rng.integers(-127, 128, (L, out_d, in_d), dtype=np.int16).astype(np.int8)
-        return {"weight": {
-            "q": jnp.asarray(qv),
-            "scale": jnp.full((L, out_d, 1), 0.02 / 127.0, np.float32)}}
-
-    layers = {"input_layernorm": {"weight": jnp.ones((L, H), jnp.float32)},
-              "post_attention_layernorm": {"weight": jnp.ones((L, H), jnp.float32)},
-              "q_proj": q(cfg.num_heads * HD, H, "q_proj"),
-              "k_proj": q(cfg.num_kv_heads * HD, H, "k_proj"),
-              "v_proj": q(cfg.num_kv_heads * HD, H, "v_proj"),
-              "o_proj": q(H, cfg.num_heads * HD, "o_proj"),
-              "gate_proj": q(I, H, "gate_proj"),
-              "up_proj": q(I, H, "up_proj"),
-              "down_proj": q(H, I, "down_proj")}
-    emb = jnp.asarray((rng.standard_normal((cfg.vocab_size, H)) * 0.02
-                       ).astype(ml_dtypes.bfloat16))
-    return {"layers": layers, "embed_tokens": emb,
-            "norm": {"weight": jnp.ones((H,), jnp.float32)},
-            "lm_head": {"weight": emb}}
-
-
 def main():
     tiny = os.environ.get("SLIME_MMP_TINY") == "1"
     import jax
     import jax.numpy as jnp
 
-    from slime_tpu.config import SliMEConfig
-    from slime_tpu.constants import IMAGE_TOKEN_INDEX
-    from slime_tpu.models import llama, projector as proj_mod, sampler as samp_mod
-    from slime_tpu.models import slime, vit
-    from slime_tpu.serve.batch_engine import BatchDecodeEngine, Request
+    from slime_jax.config import SliMEConfig
+    from slime_jax.constants import IMAGE_TOKEN_INDEX
+    from slime_jax.models import llama, projector as proj_mod, sampler as samp_mod
+    from slime_jax.models import slime, vit
+    from slime_jax.random_weights import random_llm
+    from slime_jax.serve.batch_engine import BatchDecodeEngine, Request
 
     rng = np.random.default_rng(0)
     jrng = jax.random.PRNGKey(0)
@@ -88,7 +59,7 @@ def main():
             "vision": to_bf16(vit.init(jrng, cfg.vision)),
             "projector": to_bf16(proj_mod.init(jax.random.fold_in(jrng, 1), cfg)),
             "sampler": to_bf16(samp_mod.init(jax.random.fold_in(jrng, 2), cfg)),
-            "llm": _int8_llm_params(cfg.llm, rng),
+            "llm": random_llm(cfg.llm, jax.random.PRNGKey(0), "int8"),
         }
         text0 = int(os.environ.get("SLIME_MMP_TEXT", "64"))
         extra = int(os.environ.get("SLIME_MMP_EXTRA", "48"))
@@ -112,7 +83,7 @@ def main():
     # persistent compile cache — seconds per 8B graph) inside every measured
     # TTFT. The prefix cache is a plain attribute the admission path checks
     # per request; toggling it on the same engine gives a pure-admission A/B.
-    from slime_tpu.serve.prefix_cache import PrefixCache
+    from slime_jax.serve.prefix_cache import PrefixCache
 
     pc_mb = 64 if tiny else 1024
     eng = BatchDecodeEngine(params, cfg, max_slots=2, cache_len=cache_len,
@@ -151,8 +122,8 @@ def main():
         stats = eng.prefix_cache.stats() if eng.prefix_cache else {}
         return ttfts, outs, stats
 
-    from slime_tpu.utils import enable_compilation_cache
-    enable_compilation_cache()   # SLIME_COMPILE_CACHE=<dir> to reuse compiles
+    from slime_jax.utils import enable_compilation_cache
+    enable_compilation_cache()
 
     # warm pass on the SAME engine: compile every turn shape for both
     # configurations (cache-on covers the seed + suffix-prefill graphs,

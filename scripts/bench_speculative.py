@@ -5,7 +5,7 @@ VERDICT r01 #9: the exactness mechanics of serve/speculative.py are tested, but
 acceptance rates mean nothing between two unrelated random models. This bench
 manufactures a CORRELATED pair the honest way: train a target LM and a 4x-smaller
 draft LM on the same synthetic 2nd-order Markov language (a few hundred optax
-steps, minutes on one chip), then measure
+steps, minutes on one device), then measure
 
   - acceptance rate of K-token drafts against the target's greedy decode
   - end-to-end tok/s: speculative vs plain jitted decode on the same target
@@ -62,7 +62,7 @@ def train_lm(cfg_llm, seqs, *, steps, batch, lr=3e-3, seed=0, label=""):
     import jax.numpy as jnp
     import optax
 
-    from slime_tpu.models import llama
+    from slime_jax.models import llama
 
     params = llama.init(jax.random.PRNGKey(seed), cfg_llm)
     tx = optax.adamw(lr, weight_decay=0.01)
@@ -106,9 +106,9 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    from slime_tpu.config import LLMConfig, SliMEConfig
-    from slime_tpu.models import llama
-    from slime_tpu.serve.speculative import speculative_generate
+    from slime_jax.config import LLMConfig, SliMEConfig
+    from slime_jax.models import llama
+    from slime_jax.serve.speculative import speculative_generate
 
     V, S = args.vocab, 128
     t_cfg = LLMConfig(vocab_size=V, hidden_size=512, intermediate_size=1408,
@@ -181,8 +181,8 @@ def main():
         pl_times.append(time.perf_counter() - t0)
         # greedy-agreement diagnostic: speculative is exact w.r.t. the target's
         # verify-path logits (test_speculative.py proves that on CPU fp32), but
-        # on TPU the default matmul precision truncates fp32 to bf16 mantissas,
-        # so the 5-query verify chunk and the 1-query decode step can argmax
+        # on an accelerator the default matmul precision may run fp32 in bf16 or
+        # TF32, so the 5-query verify chunk and the 1-query decode step can argmax
         # differently on near-ties — report the agreement prefix, don't assert
         want = np.asarray(out)
         got = np.asarray(toks)[0]
@@ -212,7 +212,7 @@ def main():
         "metric": "speculative_greedy_prefix_agreement",
         "value": round(float(np.mean(prefix_agree)), 3),
         "unit": ("fraction of tokens matching the decode_step greedy path "
-                 "before first divergence (sub-1.0 = TPU default-precision "
+                 "before first divergence (sub-1.0 = default-precision "
                  "argmax ties, not a correctness gap; CPU fp32 exactness is "
                  "asserted in tests/test_speculative.py)"),
         "vs_baseline": None}))

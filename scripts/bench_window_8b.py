@@ -1,10 +1,10 @@
-"""Measure the decode window-bucketing win at 8B on one chip.
+"""Measure the decode window-bucketing win at 8B on one device.
 
 The serving engine's slot cache is [L, slots, cache_len, KVH, hd]; before
 window bucketing every decode tick streamed the whole cache_len of K/V per
 slot (at 8 slots x 2048 x 8B bf16 that's ~2 GB/step on top of the ~8 GB int8
 weight stream). This bench runs the SAME batched decode step at several
-static windows and reports ms/step — the delta is pure KV-cache HBM traffic.
+static windows and reports ms/step — the delta is KV-cache read traffic.
 
 Env: SLIME_WIN_SLOTS (8), SLIME_WIN_CACHE (2048), SLIME_WIN_STEPS (32).
 Prints one JSON line per window.
@@ -21,8 +21,8 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    from slime_tpu.config import LLMConfig
-    from slime_tpu.models import llama
+    from slime_jax.config import LLMConfig
+    from slime_jax.models import llama
 
     slots = int(os.environ.get("SLIME_WIN_SLOTS", "8"))
     cache_len = int(os.environ.get("SLIME_WIN_CACHE", "2048"))

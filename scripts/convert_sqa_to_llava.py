@@ -3,7 +3,7 @@
 
 Reference scripts/convert_sqa_to_llava.py (record semantics: strip the
 'Question: '/'Answer: ' prefixes, append '\n<image>' for image problems) on
-top of the full CoT prompt permutation engine (slime_tpu/eval/sqa_prompt.py,
+top of the full CoT prompt permutation engine (slime_jax/eval/sqa_prompt.py,
 byte-parity-tested against convert_sqa_to_llava_base_prompt.py). Supports
 every reference format (QCM-A ... QCLEM-ELA, QCM-LEPA for the jsonl variant).
 """
@@ -14,7 +14,7 @@ import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from slime_tpu.eval import sqa_prompt
+from slime_jax.eval import sqa_prompt
 
 
 def convert_to_llava(base_dir, split, prompt_format, output=None):

@@ -2,7 +2,7 @@
 """Generic eval CLI: chunk-sharded answer generation + scoring.
 
 Replaces the per-benchmark bash fan-out (scripts/llama/eval/*.sh) — chunking flags
-match the reference (--num-chunks/--chunk-idx), so multiple hosts/chips can split a
+match the reference (--num-chunks/--chunk-idx), so multiple hosts/devices can split a
 benchmark and `--merge` concatenates + scores.
 """
 import argparse
@@ -62,7 +62,7 @@ def main():
                      "greedy protocol); drop the flag(s) or use "
                      "--benchmark generic")
 
-    from slime_tpu.eval import harness, scorers
+    from slime_jax.eval import harness, scorers
 
     if args.merge:
         files = sorted(glob.glob(args.answers_file.replace("{chunk}", "*")))
@@ -76,8 +76,8 @@ def main():
     import jax.numpy as jnp
     from transformers import AutoTokenizer
 
-    from slime_tpu import checkpoint as ckpt
-    from slime_tpu.config import SliMEConfig
+    from slime_jax import checkpoint as ckpt
+    from slime_jax.config import SliMEConfig
 
     cfg = SliMEConfig.load(args.model_path)
     params = ckpt.to_jax(ckpt.load_pretrained(
@@ -88,7 +88,7 @@ def main():
     chunk = harness.get_chunk(questions, args.num_chunks, args.chunk_idx)
     out = args.answers_file.replace("{chunk}", str(args.chunk_idx))
     if args.benchmark != "generic":
-        from slime_tpu.eval import benchmarks
+        from slime_jax.eval import benchmarks
         if args.benchmark == "chartqa":
             print(benchmarks.run_chartqa(
                 params, cfg, tokenizer, chunk, image_folder=args.image_folder,

@@ -15,7 +15,7 @@ import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from slime_tpu.eval import mmhal  # noqa: E402
+from slime_jax.eval import mmhal  # noqa: E402
 
 
 def main():
@@ -35,7 +35,7 @@ def main():
         print(json.dumps(mmhal.summarize(reviews), indent=2))
         return
 
-    from slime_tpu.eval.gpt_review import make_openai_judge
+    from slime_jax.eval.gpt_review import make_openai_judge
     kw = {"api_key": args.api_key}
     if args.base_url:
         kw["base_url"] = args.base_url

@@ -17,7 +17,7 @@ def main():
     import numpy as np
     import torch
 
-    from slime_tpu import checkpoint as ckpt
+    from slime_jax import checkpoint as ckpt
 
     sd = ckpt.load_sharded_state_dict(args.model_path)
     os.makedirs(args.output, exist_ok=True)

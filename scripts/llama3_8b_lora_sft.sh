@@ -4,7 +4,7 @@
 # sampler train outside the adapters and save as non_lora_trainables.bin).
 #
 # QLoRA: BITS=4 (NF4, the reference's bitsandbytes type) or BITS=8 quantizes
-# the frozen LLM base — an 8B fits on ONE v5e chip this way (the reference
+# the frozen LLM base and shrinks its weight memory 4x / 2x (the reference
 # needs an A100-80G; see docs/Training.md).
 set -e
 

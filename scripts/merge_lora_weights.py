@@ -15,8 +15,8 @@ def main():
     ap.add_argument("--save-model-path", required=True)
     args = ap.parse_args()
 
-    from slime_tpu import checkpoint as ckpt
-    from slime_tpu.config import SliMEConfig
+    from slime_jax import checkpoint as ckpt
+    from slime_jax.config import SliMEConfig
 
     cfg = SliMEConfig.load(args.model_path)
     # load_pretrained detects adapter_model.* / inline lora_* keys and merges

@@ -3,7 +3,7 @@
 
 Rebuilds the argument surface of the reference's ModelArguments / DataArguments /
 TrainingArguments (llava/train/train.py:56-166) + train() orchestration
-(train.py:943-1199) for the TPU stack. One process drives the whole mesh (SPMD);
+(train.py:943-1199). One process drives the whole mesh (SPMD);
 there is no per-GPU launcher — the deepspeed CLI's role is played by
 jax.distributed + the (data, fsdp, model) mesh.
 
@@ -108,9 +108,6 @@ def parse_args():
     ap.add_argument("--mesh-fsdp", type=int, default=None)
     ap.add_argument("--mesh-model", type=int, default=1)
     ap.add_argument("--bf16", action="store_true", default=True)
-    ap.add_argument("--use-pallas-attention", action="store_true",
-                    help="route LLM attention through the Pallas flash kernel "
-                         "(O(S) memory; avoids the O(S^2) probability tensor)")
     ap.add_argument("--remat", action="store_true",
                     help="rematerialize decoder blocks on backward (gradient "
                          "checkpointing equivalent)")
@@ -118,19 +115,19 @@ def parse_args():
 
 
 def main():
-    from slime_tpu.utils import enable_compilation_cache
+    from slime_jax.utils import enable_compilation_cache
     enable_compilation_cache()
     args = parse_args()
     import jax
     import jax.numpy as jnp
 
-    from slime_tpu import checkpoint as ckpt
-    from slime_tpu.config import SliMEConfig
-    from slime_tpu.data.dataset import SupervisedDataset, data_loader
-    from slime_tpu.models import slime
-    from slime_tpu.parallel import mesh as mesh_lib
-    from slime_tpu.train.optim import TrainConfig
-    from slime_tpu.train.trainer import RunConfig, Trainer
+    from slime_jax import checkpoint as ckpt
+    from slime_jax.config import SliMEConfig
+    from slime_jax.data.dataset import SupervisedDataset, data_loader
+    from slime_jax.models import slime
+    from slime_jax.parallel import mesh as mesh_lib
+    from slime_jax.train.optim import TrainConfig
+    from slime_jax.train.trainer import RunConfig, Trainer
 
     cfg = SliMEConfig.load(args.model_path)
     cfg = SliMEConfig(**{**cfg.__dict__,
@@ -154,18 +151,17 @@ def main():
     else:
         params = slime.init(jax.random.PRNGKey(args.seed), cfg)
         if args.bits != 16:
-            from slime_tpu.ops.quantization import quantize_params
+            from slime_jax.ops.quantization import quantize_params
             params["llm"]["layers"] = quantize_params(
                 params["llm"]["layers"], args.bits)
     # stack the LLM layer list: llama.forward lax.scans over stacked
     # storage, so the train step compiles ONE layer body instead of
     # unrolling every decoder block into the fwd+bwd graph (unrolled, the
-    # remote compile of a 190M 3-stage run took >25 min per stage; stacked
-    # matches bench_train_8b's measured configuration). MoE layers keep the
+    # compile of a 190M 3-stage run took >25 min per stage). MoE layers keep the
     # list layout (per-expert subtrees are not uniformly stackable).
     if (not args.lora_enable and cfg.llm.num_experts == 0
             and isinstance(params["llm"].get("layers"), list)):
-        from slime_tpu.models import llama as llama_mod
+        from slime_jax.models import llama as llama_mod
         params["llm"]["layers"] = llama_mod.stack_layers(
             params["llm"]["layers"])
 
@@ -187,7 +183,7 @@ def main():
     tokenizer.model_max_length = args.model_max_length
 
     if args.task == "DPO":
-        from slime_tpu.data.dpo import PreferenceDataset
+        from slime_jax.data.dpo import PreferenceDataset
         ds = PreferenceDataset(args.data_path, tokenizer,
                                image_folder=args.image_folder,
                                image_aspect_ratio=args.image_aspect_ratio,
@@ -236,13 +232,13 @@ def main():
 
     lora_state = None
     if args.lora_enable:
-        from slime_tpu.train import lora as lora_lib
+        from slime_jax.train import lora as lora_lib
         lora_state = lora_lib.init_lora(jax.random.PRNGKey(args.seed + 1),
                                         params, r=args.lora_r,
                                         alpha=args.lora_alpha)
     dpo_cfg, ref_params = None, None
     if args.task == "DPO":
-        from slime_tpu.train.dpo import DPOConfig
+        from slime_jax.train.dpo import DPOConfig
         dpo_cfg = DPOConfig(beta=args.dpo_beta, loss_type=args.dpo_loss_type,
                             use_average=args.dpo_use_average,
                             token_weighted=args.dpo_token_weighted,
@@ -263,7 +259,6 @@ def main():
                 args.ref_model_path, cfg=cfg))
     trainer = Trainer(params, cfg, tc, rc, mesh=mesh,
                       compute_dtype=jnp.bfloat16 if args.bf16 else jnp.float32,
-                      use_pallas=args.use_pallas_attention or None,
                       remat=args.remat, lora=lora_state, dpo=dpo_cfg,
                       ref_params=ref_params)
 
@@ -278,10 +273,10 @@ def main():
     def batches():
         import random as _random
 
-        from slime_tpu.data.packing import packed_loader
+        from slime_jax.data.packing import packed_loader
         for epoch in range(args.num_train_epochs):
             if args.task == "DPO":
-                from slime_tpu.data.dpo import dpo_loader
+                from slime_jax.data.dpo import dpo_loader
                 yield from dpo_loader(
                     ds, batch_size=global_batch,
                     seq_len=args.model_max_length,
@@ -304,7 +299,7 @@ def main():
                 group_by_modality_length=args.group_by_modality_length,
                 num_workers=8)
 
-    from slime_tpu.data.dataset import prefetch
+    from slime_jax.data.dataset import prefetch
     trainer.train(prefetch(batches(), depth=2))
     trainer.save(args.output_dir)
     print(f"done -> {args.output_dir}")

@@ -54,7 +54,7 @@ def probe_inputs(cfg):
     """Deterministic probe batch from the config alone (seed 0): token ids in
     [5, vocab), an '<image>' sentinel at position 2 of row 0, unit-normal
     pixels for the full crop grid. Reproduce in torch with the same calls."""
-    from slime_tpu.constants import IMAGE_TOKEN_INDEX
+    from slime_jax.constants import IMAGE_TOKEN_INDEX
 
     rng = np.random.default_rng(0)
     MC = 1 + cfg.max_local_crops
@@ -69,7 +69,7 @@ def probe_inputs(cfg):
 
 def gen_prompts(cfg):
     """3 fixed prompts: [0] multimodal, [1-2] text-only; ids from seed 1."""
-    from slime_tpu.constants import IMAGE_TOKEN_INDEX
+    from slime_jax.constants import IMAGE_TOKEN_INDEX
 
     rng = np.random.default_rng(1)
     prompts = []
@@ -84,7 +84,7 @@ def gen_prompts(cfg):
 def last_logits(params, cfg, ids, mask, pixels, crop_mask):
     import jax.numpy as jnp
 
-    from slime_tpu.models import slime
+    from slime_jax.models import slime
 
     logits, _ = slime.forward(params, cfg, jnp.asarray(ids), jnp.asarray(mask),
                               jnp.asarray(pixels), jnp.asarray(crop_mask),
@@ -93,7 +93,7 @@ def last_logits(params, cfg, ids, mask, pixels, crop_mask):
 
 
 def run_generations(params, cfg):
-    from slime_tpu import generate as gen_mod
+    from slime_jax import generate as gen_mod
 
     outs = []
     ids_probe = probe_inputs(cfg)
@@ -113,7 +113,7 @@ def main(argv=None):
     ap.add_argument("--model-base", default=None)
     ap.add_argument("--vision-path", default=None)
     ap.add_argument("--golden", default=None,
-                    help="golden .npz (default: <model_path>/slime_tpu_golden.npz)")
+                    help="golden .npz (default: <model_path>/slime_jax_golden.npz)")
     ap.add_argument("--record", action="store_true",
                     help="write the golden from this run instead of checking")
     ap.add_argument("--tol", type=float, default=1e-3)
@@ -125,11 +125,11 @@ def main(argv=None):
 
     import jax  # noqa: F401  (import after argparse so --help is instant)
 
-    from slime_tpu import checkpoint as ckpt
-    from slime_tpu.config import SliMEConfig
+    from slime_jax import checkpoint as ckpt
+    from slime_jax.config import SliMEConfig
 
     golden_path = args.golden or os.path.join(args.model_path,
-                                              "slime_tpu_golden.npz")
+                                              "slime_jax_golden.npz")
     cfg = SliMEConfig.load(args.model_path)
     results = {}
 

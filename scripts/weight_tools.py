@@ -36,7 +36,7 @@ def main():
     import numpy as np
     import torch
 
-    from slime_tpu import checkpoint as ckpt
+    from slime_jax import checkpoint as ckpt
 
     def save(sd, path, cfg_src=None):
         os.makedirs(path, exist_ok=True)

@@ -35,9 +35,9 @@ def make_tiny_checkpoint_dir(path: str, seed: int = 0) -> str:
     """Tiny SliME checkpoint + tokenizer files in one dir (full CLI surface)."""
     import jax
 
-    from slime_tpu import checkpoint as ckpt
-    from slime_tpu.config import SliMEConfig
-    from slime_tpu.models import slime
+    from slime_jax import checkpoint as ckpt
+    from slime_jax.config import SliMEConfig
+    from slime_jax.models import slime
 
     cfg = SliMEConfig.tiny()
     params = slime.init(jax.random.PRNGKey(seed), cfg)

@@ -2,8 +2,8 @@
 import numpy as np
 import pytest
 
-from slime_tpu.constants import MAX_CROPS
-from slime_tpu.data import anyres
+from slime_jax.constants import MAX_CROPS
+from slime_jax.data import anyres
 
 from .ref_loader import load_ref_modules
 

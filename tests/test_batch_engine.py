@@ -6,11 +6,11 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from slime_tpu.config import SliMEConfig
-from slime_tpu.constants import IMAGE_TOKEN_INDEX
-from slime_tpu.generate import generate
-from slime_tpu.models import slime
-from slime_tpu.serve.batch_engine import BatchDecodeEngine, Request
+from slime_jax.config import SliMEConfig
+from slime_jax.constants import IMAGE_TOKEN_INDEX
+from slime_jax.generate import generate
+from slime_jax.models import slime
+from slime_jax.serve.batch_engine import BatchDecodeEngine, Request
 
 
 @pytest.fixture(scope="module")
@@ -83,7 +83,7 @@ def test_top_p_sampling_stays_in_nucleus(setup):
     of ITS step's distribution — checked against teacher-forced reference
     logits for the emitted prefix."""
     cfg, params, _ = setup
-    from slime_tpu.models import llama
+    from slime_jax.models import llama
 
     rng = np.random.default_rng(10)
     ids = rng.integers(5, cfg.llm.vocab_size, (5,)).astype(np.int32)
@@ -169,8 +169,8 @@ def test_batched_worker_http(setup):
     import threading
     import requests as rq
 
-    from slime_tpu.serve.batched_worker import BatchedWorker, build_server
-    from slime_tpu.serve.protocol import iter_stream_response
+    from slime_jax.serve.batched_worker import BatchedWorker, build_server
+    from slime_jax.serve.protocol import iter_stream_response
     from .toy_tokenizer import ToyTokenizer
 
     cfg, params, _ = setup
@@ -319,8 +319,8 @@ def test_prefix_http_route(setup):
     import threading
     import requests as rq
 
-    from slime_tpu.serve.batched_worker import BatchedWorker, build_server
-    from slime_tpu.serve.protocol import iter_stream_response
+    from slime_jax.serve.batched_worker import BatchedWorker, build_server
+    from slime_jax.serve.protocol import iter_stream_response
     from .toy_tokenizer import ToyTokenizer
 
     cfg, params, _ = setup
@@ -482,8 +482,8 @@ def test_batched_worker_with_draft_http(spec_setup):
     import threading
     import requests as rq
 
-    from slime_tpu.serve.batched_worker import BatchedWorker, build_server
-    from slime_tpu.serve.protocol import iter_stream_response
+    from slime_jax.serve.batched_worker import BatchedWorker, build_server
+    from slime_jax.serve.protocol import iter_stream_response
     from .toy_tokenizer import ToyTokenizer
 
     cfg, params, dcfg, dparams = spec_setup
@@ -613,7 +613,7 @@ def test_worker_generator_close_cancels_engine_request(setup):
     does on client disconnect, serve/protocol.py) cancels the engine request."""
     import time
 
-    from slime_tpu.serve.batched_worker import BatchedWorker
+    from slime_jax.serve.batched_worker import BatchedWorker
     from .toy_tokenizer import ToyTokenizer
 
     cfg, params, _ = setup
@@ -651,9 +651,9 @@ def test_controller_proxy_disconnect_cancels_worker_request(setup):
     import threading
     import time
 
-    from slime_tpu.serve.batched_worker import BatchedWorker, build_server
-    from slime_tpu.serve.controller import Controller
-    from slime_tpu.serve.controller import build_server as build_controller
+    from slime_jax.serve.batched_worker import BatchedWorker, build_server
+    from slime_jax.serve.controller import Controller
+    from slime_jax.serve.controller import build_server as build_controller
     from .toy_tokenizer import ToyTokenizer
 
     cfg, params, _ = setup
@@ -743,10 +743,10 @@ def test_no_per_slot_or_per_length_retrace():
     import jax
     import numpy as np
 
-    from slime_tpu.config import SliMEConfig
-    from slime_tpu.models import slime
-    from slime_tpu.serve import batch_engine as be
-    from slime_tpu.serve.batch_engine import BatchDecodeEngine, Request
+    from slime_jax.config import SliMEConfig
+    from slime_jax.models import slime
+    from slime_jax.serve import batch_engine as be
+    from slime_jax.serve.batch_engine import BatchDecodeEngine, Request
 
     cfg = SliMEConfig.tiny()
     params = slime.init(jax.random.PRNGKey(0), cfg)

@@ -6,9 +6,9 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from slime_tpu.config import SliMEConfig
-from slime_tpu.generate import beam_search, generate
-from slime_tpu.models import llama, slime
+from slime_jax.config import SliMEConfig
+from slime_jax.generate import beam_search, generate
+from slime_jax.models import llama, slime
 
 
 @pytest.fixture(scope="module")

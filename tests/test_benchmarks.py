@@ -3,8 +3,8 @@ import json
 
 import pytest
 
-from slime_tpu.eval import benchmarks as bm
-from slime_tpu.eval import gpt_review as gr
+from slime_jax.eval import benchmarks as bm
+from slime_jax.eval import gpt_review as gr
 
 
 def test_mmbench_prompt_and_rotation():
@@ -39,7 +39,7 @@ def test_converters(tmp_path):
 
 
 def test_xlsx_roundtrip(tmp_path):
-    from slime_tpu.eval.xlsx import read_xlsx, write_xlsx
+    from slime_jax.eval.xlsx import read_xlsx, write_xlsx
     p = write_xlsx(str(tmp_path / "t.xlsx"), ["index", "question", "prediction"],
                    [[1, "what <is> & this?", "A"],
                     [2, "trailing space ", None],
@@ -83,7 +83,7 @@ def test_mmbench_to_submission_xlsx(tmp_path):
         f.write(json.dumps({"question_id": 7, "text": "rotated",
                             "round_id": 1}) + "\n")  # non-zero rounds ignored
     out = bm.mmbench_to_submission(str(ans), str(tsv), str(tmp_path / "sub.xlsx"))
-    from slime_tpu.eval.xlsx import read_xlsx
+    from slime_jax.eval.xlsx import read_xlsx
     rows = read_xlsx(out)
     # reference drops hint/category/source/image/comment/l2-category and
     # inserts 'prediction' at position 6 (convert_mmbench_for_submission.py:21-22)
@@ -125,7 +125,7 @@ def test_gpt_review_with_fake_judge():
 
 
 def test_webpage_renderer(tmp_path):
-    from slime_tpu.eval import webpage
+    from slime_jax.eval import webpage
     qs = [{"question_id": 1, "text": "what <is> this?"}]
     a1 = [{"text": "a cat"}]
     a2 = [{"text": "a <b>dog</b>"}]
@@ -144,13 +144,13 @@ def _fake_run_eval(questions, question_key):
             for i, q in enumerate(qs):
                 f.write(json.dumps({"question_id": q.get("id", i),
                                     "text": f"ans:{q[question_key]}",
-                                    "model_id": "slime-tpu"}) + "\n")
+                                    "model_id": "slime-jax"}) + "\n")
         return answers_file
     return fake
 
 
 def test_run_chartqa_format(tmp_path, monkeypatch):
-    from slime_tpu.eval import harness
+    from slime_jax.eval import harness
     qs = [{"image": "a.png", "question": "total?", "answer": "10"},
           {"image": "b.png", "question": "max?", "answer": ["x", "y"]}]
     monkeypatch.setattr(harness, "run_eval", _fake_run_eval(qs, "question"))
@@ -164,7 +164,7 @@ def test_run_chartqa_format(tmp_path, monkeypatch):
 
 
 def test_run_amber_format(tmp_path, monkeypatch):
-    from slime_tpu.eval import harness
+    from slime_jax.eval import harness
     qs = [{"id": 7, "image": "a.png", "query": "describe this"}]
     monkeypatch.setattr(harness, "run_eval", _fake_run_eval(qs, "query"))
     out = tmp_path / "amber.jsonl"
@@ -174,11 +174,11 @@ def test_run_amber_format(tmp_path, monkeypatch):
     # AMBER expects the capitalized response (model_vqa_amber.py:128)
     assert rows[0] == {"id": 7, "prompt": "describe this",
                        "response": "Ans:describe this",
-                       "model_id": "slime-tpu", "metadata": {}}
+                       "model_id": "slime-jax", "metadata": {}}
 
 
 def test_run_mmhal_format(tmp_path, monkeypatch):
-    from slime_tpu.eval import harness
+    from slime_jax.eval import harness
     recs = [{"question": "how many cats?", "image_path": "/x/a.png",
              "image_content": ["Cat"], "gt_answer": "two"}]
 

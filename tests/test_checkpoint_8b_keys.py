@@ -29,9 +29,9 @@ import pytest
 
 import jax
 
-from slime_tpu import checkpoint as ckpt
-from slime_tpu.config import LLMConfig, SliMEConfig, VisionConfig
-from slime_tpu.models import slime
+from slime_jax import checkpoint as ckpt
+from slime_jax.config import LLMConfig, SliMEConfig, VisionConfig
+from slime_jax.models import slime
 
 N_LLM_LAYERS = 32   # Llama-3-8B
 N_VIT_LAYERS = 24   # CLIP-L/336

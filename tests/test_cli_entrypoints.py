@@ -13,7 +13,7 @@ import pytest
 from .hf_fixtures import make_tiny_checkpoint_dir
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-ENV = dict(os.environ, JAX_PLATFORMS="cpu", SLIME_PLATFORM="cpu",
+ENV = dict(os.environ, JAX_PLATFORMS="cpu",
            XLA_FLAGS="",  # single CPU device: conftest's 8-device flag is inherited otherwise
            PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
 
@@ -59,7 +59,7 @@ def test_eval_benchmark_cli(ckpt_dir, img_dir, tmp_path):
 
 @pytest.mark.slow
 def test_run_slime_cli(ckpt_dir, img_dir):
-    r = _run(["-m", "slime_tpu.eval.run_slime", "--model-path", ckpt_dir,
+    r = _run(["-m", "slime_jax.eval.run_slime", "--model-path", ckpt_dir,
               "--image-file", os.path.join(img_dir, "x.jpg"),
               "--query", "describe this image", "--max-new-tokens", "3",
               "--temperature", "0"])

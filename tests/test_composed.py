@@ -9,9 +9,9 @@ import jax.numpy as jnp
 import optax
 from jax.sharding import PartitionSpec as P
 
-from slime_tpu.config import LLMConfig
-from slime_tpu.models import llama
-from slime_tpu.parallel import composed
+from slime_jax.config import LLMConfig
+from slime_jax.models import llama
+from slime_jax.parallel import composed
 
 pytestmark = pytest.mark.skipif(
     len(jax.devices()) < 8, reason="needs the 8-device virtual mesh")
@@ -59,7 +59,7 @@ def test_composed_train_step_matches_single_device():
     composed_losses = (float(metrics["loss"]), float(metrics2["loss"]))
 
     # single-device oracle: same math, no mesh
-    from slime_tpu.constants import IGNORE_INDEX
+    from slime_jax.constants import IGNORE_INDEX
 
     def loss_fn(p, b):
         logits = llama.forward(p, llama.embed(p, b["input_ids"]), cfg)[0]
@@ -94,9 +94,9 @@ def test_composed_mm_train_step_full_multimodal():
     single-device slime.loss_fn oracle — the 70B-story completeness check
     (reference trains the full multimodal model every SFT step,
     llava/train/train.py:1096-1099)."""
-    from slime_tpu.config import SliMEConfig
-    from slime_tpu.constants import IGNORE_INDEX, IMAGE_TOKEN_INDEX
-    from slime_tpu.models import slime
+    from slime_jax.config import SliMEConfig
+    from slime_jax.constants import IGNORE_INDEX, IMAGE_TOKEN_INDEX
+    from slime_jax.models import slime
 
     cfg = SliMEConfig.tiny()
     params = slime.init(jax.random.PRNGKey(0), cfg)

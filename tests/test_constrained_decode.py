@@ -11,10 +11,10 @@ import pytest
 jnp = pytest.importorskip("jax.numpy")
 import jax  # noqa: E402
 
-from slime_tpu.config import SliMEConfig
-from slime_tpu.models import slime
-from slime_tpu.serve.batch_engine import BatchDecodeEngine, Request
-from slime_tpu.serve.grammar import (choices_regex, compile_token_dfa,
+from slime_jax.config import SliMEConfig
+from slime_jax.models import slime
+from slime_jax.serve.batch_engine import BatchDecodeEngine, Request
+from slime_jax.serve.grammar import (choices_regex, compile_token_dfa,
                                      json_schema_regex)
 
 

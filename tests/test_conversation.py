@@ -1,7 +1,7 @@
 """Parity tests: conversation templates render byte-identical prompts."""
 import pytest
 
-from slime_tpu import conversation as conv
+from slime_jax import conversation as conv
 
 from .ref_loader import load_ref_conversation
 

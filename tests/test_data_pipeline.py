@@ -5,12 +5,12 @@ import json
 import numpy as np
 import pytest
 
-from slime_tpu.constants import (DEFAULT_IMAGE_TOKEN, IGNORE_INDEX,
+from slime_jax.constants import (DEFAULT_IMAGE_TOKEN, IGNORE_INDEX,
                                  IMAGE_TOKEN_INDEX, MAX_CROPS)
-from slime_tpu.data import preprocess as pp
-from slime_tpu.data.dataset import (LengthGroupedSampler, SupervisedDataset,
+from slime_jax.data import preprocess as pp
+from slime_jax.data.dataset import (LengthGroupedSampler, SupervisedDataset,
                                     collate, data_loader)
-from slime_tpu.data.tokenization import tokenizer_image_token
+from slime_jax.data.tokenization import tokenizer_image_token
 
 from .toy_tokenizer import ToyTokenizer
 
@@ -142,7 +142,7 @@ def test_length_grouped_sampler_separates_modalities():
 
 
 def test_prefetch_order_and_errors():
-    from slime_tpu.data.dataset import prefetch
+    from slime_jax.data.dataset import prefetch
 
     assert list(prefetch(iter(range(20)), depth=3)) == list(range(20))
 
@@ -164,7 +164,7 @@ def test_prefetcher_map_fn_and_stall_accounting():
     accounts consumer stall time (the host-stall metric the trainer logs)."""
     import time
 
-    from slime_tpu.data.dataset import Prefetcher
+    from slime_jax.data.dataset import Prefetcher
 
     pf = Prefetcher(iter(range(10)), depth=2, map_fn=lambda x: x * 2)
     assert list(pf) == [x * 2 for x in range(10)]
@@ -187,11 +187,11 @@ def test_trainer_prefetch_matches_synchronous(tmp_path):
     import jax.numpy as jnp
     import numpy as np
 
-    from slime_tpu.config import SliMEConfig
-    from slime_tpu.models import slime
-    from slime_tpu.train.optim import TrainConfig
-    from slime_tpu.train.trainer import RunConfig, Trainer
-    from slime_tpu.constants import IGNORE_INDEX, IMAGE_TOKEN_INDEX
+    from slime_jax.config import SliMEConfig
+    from slime_jax.models import slime
+    from slime_jax.train.optim import TrainConfig
+    from slime_jax.train.trainer import RunConfig, Trainer
+    from slime_jax.constants import IGNORE_INDEX, IMAGE_TOKEN_INDEX
 
     cfg = SliMEConfig.tiny()
     params = slime.init(jax.random.PRNGKey(0), cfg)

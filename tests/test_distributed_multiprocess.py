@@ -17,7 +17,7 @@ sys.path.insert(0, os.environ["SLIME_REPO"])
 import jax
 jax.config.update("jax_platforms", "cpu")
 
-from slime_tpu.parallel import distributed as dist
+from slime_jax.parallel import distributed as dist
 
 dist.initialize()  # env fallbacks: COORDINATOR_ADDRESS/NUM_PROCESSES/PROCESS_ID
 
@@ -78,7 +78,7 @@ def test_two_process_psum(tmp_path):
         env["NUM_PROCESSES"] = "2"
         env["PROCESS_ID"] = str(pid)
         # each process needs its own compile cache to avoid write races
-        env["SLIME_COMPILE_CACHE"] = str(tmp_path / f"cache{pid}")
+        env["JAX_COMPILATION_CACHE_DIR"] = str(tmp_path / f"cache{pid}")
         procs.append(subprocess.Popen(
             [sys.executable, str(script)], env=env,
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))

@@ -17,15 +17,15 @@ import jax
 import jax.numpy as jnp
 import optax
 
-from slime_tpu.config import SliMEConfig
-from slime_tpu.constants import IGNORE_INDEX, IMAGE_TOKEN_INDEX
-from slime_tpu.data.dpo import (PreferenceDataset, collate_dpo, dpo_loader,
+from slime_jax.config import SliMEConfig
+from slime_jax.constants import IGNORE_INDEX, IMAGE_TOKEN_INDEX
+from slime_jax.data.dpo import (PreferenceDataset, collate_dpo, dpo_loader,
                                 normalize_record, target_token_weights)
-from slime_tpu.models import slime
-from slime_tpu.ops.loss import chunked_sequence_logp
-from slime_tpu.train import dpo
-from slime_tpu.train.optim import TrainConfig, make_optimizer
-from slime_tpu.train.step import init_lora_train_state, init_train_state
+from slime_jax.models import slime
+from slime_jax.ops.loss import chunked_sequence_logp
+from slime_jax.train import dpo
+from slime_jax.train.optim import TrainConfig, make_optimizer
+from slime_jax.train.step import init_lora_train_state, init_train_state
 
 
 # ---------------------------------------------------------------- primitives
@@ -222,7 +222,7 @@ def test_dpo_use_average_and_sft_mix(tiny):
 def test_lora_dpo_base_is_reference(tiny):
     """LoRA-DPO at adapter init (B=0): policy == base == reference -> log 2;
     a few steps then move only the adapters/extras and separate the pair."""
-    from slime_tpu.train import lora as lora_lib
+    from slime_jax.train import lora as lora_lib
     cfg, params = tiny
     tc = TrainConfig(learning_rate=5e-3, total_steps=30,
                      lr_schedule="constant", warmup_ratio=0.0)
@@ -317,7 +317,7 @@ def test_dpo_sharded_mesh(tiny):
     """Full-parameter DPO under a (data=2, fsdp=4) mesh: policy state, frozen
     reference tree, and the stacked pair batch all shard; initial loss is
     log 2 and two steps keep separating the pair."""
-    from slime_tpu.parallel import mesh as mesh_lib
+    from slime_jax.parallel import mesh as mesh_lib
 
     cfg, params = tiny
     mesh = mesh_lib.make_mesh(2, 4, 1)

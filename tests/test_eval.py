@@ -5,7 +5,7 @@ import json
 import numpy as np
 import pytest
 
-from slime_tpu.eval import harness, scorers
+from slime_jax.eval import harness, scorers
 
 
 def test_split_and_chunk():
@@ -90,8 +90,8 @@ def test_harness_end_to_end(tmp_path):
     import jax
     from PIL import Image
 
-    from slime_tpu.config import SliMEConfig
-    from slime_tpu.models import slime
+    from slime_jax.config import SliMEConfig
+    from slime_jax.models import slime
     from .toy_tokenizer import ToyTokenizer
 
     cfg = SliMEConfig.tiny()
@@ -131,8 +131,8 @@ def test_harness_batched_matches_bs1(tmp_path):
     import jax
     from PIL import Image
 
-    from slime_tpu.config import SliMEConfig
-    from slime_tpu.models import slime
+    from slime_jax.config import SliMEConfig
+    from slime_jax.models import slime
     from .toy_tokenizer import ToyTokenizer
 
     cfg = SliMEConfig.tiny()
@@ -179,7 +179,7 @@ def test_merge_chunks(tmp_path):
 
 
 def test_video_mme_scoring(tmp_path):
-    from slime_tpu.eval.video import score_video_mme
+    from slime_jax.eval.video import score_video_mme
     f = tmp_path / "v.jsonl"
     recs = [
         {"video_id": "v1", "duration": "short", "questions": [
@@ -200,7 +200,7 @@ def test_video_mme_scoring(tmp_path):
 
 def test_video_frame_budget():
     from PIL import Image
-    from slime_tpu.eval.video import process_video_frames
+    from slime_jax.eval.video import process_video_frames
     frames = [Image.new("RGB", (640, 360), (i * 10, 0, 0)) for i in range(20)]
     pix, mask = process_video_frames(frames, tile=56, max_crops=8)
     assert pix.shape == (8, 3, 56, 56)
@@ -215,9 +215,9 @@ def test_video_mme_frames_dir_resolution(tmp_path, monkeypatch):
     import numpy as np
     from PIL import Image
 
-    import slime_tpu.generate as gen_mod
-    from slime_tpu.config import SliMEConfig
-    from slime_tpu.eval import video as video_mod
+    import slime_jax.generate as gen_mod
+    from slime_jax.config import SliMEConfig
+    from slime_jax.eval import video as video_mod
     from .toy_tokenizer import ToyTokenizer
 
     frames_root = tmp_path / "frames"
@@ -334,7 +334,7 @@ def test_score_scienceqa_gpt4_requery():
 
 
 def test_mmhal_parse_and_summarize():
-    from slime_tpu.eval import mmhal
+    from slime_jax.eval import mmhal
     assert mmhal.parse_rating("Good.\n- Rating: 5, very informative") == 5
     assert mmhal.parse_rating("rating: 6 or maybe Rating: 2") is None
     assert mmhal.parse_rating("no score here") is None
@@ -350,7 +350,7 @@ def test_mmhal_parse_and_summarize():
 
 
 def test_mmhal_judge_prompt_and_fake_judge():
-    from slime_tpu.eval import mmhal
+    from slime_jax.eval import mmhal
     rec = {"question": "How many cats?", "image_content": ["Lynx", "Cat"],
            "gt_answer": "two", "model_answer": "one"}
     p = mmhal.build_judge_prompt(rec)
@@ -367,11 +367,11 @@ def test_run_text_qa_driver(tmp_path, monkeypatch):
     sampled decoding, reference answers-jsonl schema."""
     import numpy as np
 
-    import slime_tpu.eval.harness as h
-    from slime_tpu.config import SliMEConfig
+    import slime_jax.eval.harness as h
+    from slime_jax.config import SliMEConfig
     from .toy_tokenizer import ToyTokenizer
 
-    import slime_tpu.generate as gen_mod
+    import slime_jax.generate as gen_mod
 
     seen = {}
 

@@ -39,14 +39,14 @@ def run_pipeline(tok_dir, img_path, tmp_ckpt_dir=None):
     from PIL import Image
     from transformers import AutoTokenizer
 
-    from slime_tpu import checkpoint as ckpt
-    from slime_tpu.config import SliMEConfig
-    from slime_tpu.constants import DEFAULT_IMAGE_TOKEN
-    from slime_tpu.conversation import conv_templates
-    from slime_tpu.data.image_ops import process_anyres_image_host
-    from slime_tpu.data.tokenization import tokenizer_image_token
-    from slime_tpu.generate import generate
-    from slime_tpu.models import slime
+    from slime_jax import checkpoint as ckpt
+    from slime_jax.config import SliMEConfig
+    from slime_jax.constants import DEFAULT_IMAGE_TOKEN
+    from slime_jax.conversation import conv_templates
+    from slime_jax.data.image_ops import process_anyres_image_host
+    from slime_jax.data.tokenization import tokenizer_image_token
+    from slime_jax.generate import generate
+    from slime_jax.models import slime
 
     tokenizer = AutoTokenizer.from_pretrained(tok_dir)
     assert tokenizer.is_fast  # a real HF tokenizer, not a toy

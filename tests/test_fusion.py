@@ -6,9 +6,9 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from slime_tpu.config import SliMEConfig
-from slime_tpu.constants import IGNORE_INDEX, IMAGE_TOKEN_INDEX
-from slime_tpu.models import llama, slime
+from slime_jax.config import SliMEConfig
+from slime_jax.constants import IGNORE_INDEX, IMAGE_TOKEN_INDEX
+from slime_jax.models import llama, slime
 
 
 @pytest.fixture(scope="module")
@@ -162,7 +162,7 @@ def test_global_local_only_modes(tiny):
 
 
 def test_spatial_local_perm():
-    from slime_tpu.data.image_ops import spatial_local_perm
+    from slime_jax.data.image_ops import spatial_local_perm
     # 2x1 grid (cols=2, rows=1), resampler grid 2 -> 8 tokens
     perm = spatial_local_perm(2, 1, 2, 12)
     # crop-major order: crop0=[0,1,2,3] (2x2), crop1=[4,5,6,7]
@@ -173,7 +173,7 @@ def test_spatial_local_perm():
 
 def test_naive_pad_then_devide_mode():
     from PIL import Image
-    from slime_tpu.data.image_ops import process_naive_image_host
+    from slime_jax.data.image_ops import process_naive_image_host
     img = Image.new("RGB", (800, 600), (120, 60, 30))
     crops, mask = process_naive_image_host(img)
     assert crops.shape[0] == mask.shape[0]
@@ -205,7 +205,7 @@ def test_identity_resampler_path(tiny):
 def test_unpad_merge_path(tiny):
     """'spatial_unpad' (LLaVA-NeXT) merge: padding rows dropped, newline tokens at
     row ends, base view first."""
-    from slime_tpu.data.image_ops import unpad_token_order
+    from slime_jax.data.image_ops import unpad_token_order
     cfg, _ = tiny
     cfg2 = SliMEConfig(**{**cfg.__dict__, "mm_resampler_type": "identity",
                           "mm_projector_type": "mlp2x_gelu",
@@ -240,7 +240,7 @@ def test_unpad_merge_path(tiny):
 
 
 def test_unpad_token_order_drops_padding():
-    from slime_tpu.data.image_ops import unpad_token_order
+    from slime_jax.data.image_ops import unpad_token_order
     # tall original in a wide 2x1 grid: columns get dropped
     src, valid = unpad_token_order(2, 1, 4, (100, 400), 200)
     n_loc = 2 * 1 * 16
@@ -309,7 +309,7 @@ def test_uint8_pixel_transport_matches_fp32(tiny):
     # uint8 source crops; the fp32 batch is their host-side normalization
     rng = np.random.default_rng(7)
     u8 = rng.integers(0, 256, batch["pixel_values"].shape, np.uint8)
-    from slime_tpu.data.image_ops import clip_normalize
+    from slime_jax.data.image_ops import clip_normalize
     f32 = clip_normalize(u8)
     # fp32 path zeroes padded crops (host layout); uint8 path ships raw zeros
     cm = np.asarray(batch["crop_mask"])[:, :, None, None, None]

@@ -6,10 +6,10 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from slime_tpu import generate as gen
-from slime_tpu.config import SliMEConfig
-from slime_tpu.constants import IMAGE_TOKEN_INDEX
-from slime_tpu.models import llama, slime
+from slime_jax import generate as gen
+from slime_jax.config import SliMEConfig
+from slime_jax.constants import IMAGE_TOKEN_INDEX
+from slime_jax.models import llama, slime
 
 
 @pytest.fixture(scope="module")
@@ -99,7 +99,7 @@ def test_top_p_filter():
 def test_sample_token_top_k(rng):
     import jax
     import jax.numpy as jnp
-    from slime_tpu.generate import sample_token
+    from slime_jax.generate import sample_token
 
     logits = jnp.asarray(rng.standard_normal((4, 50)).astype(np.float32)) * 3
     top3 = np.argsort(-np.asarray(logits), axis=-1)[:, :3]

@@ -11,10 +11,10 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from slime_tpu.config import SliMEConfig
-from slime_tpu.constants import IMAGE_TOKEN_INDEX
-from slime_tpu.generate import generate
-from slime_tpu.models import slime
+from slime_jax.config import SliMEConfig
+from slime_jax.constants import IMAGE_TOKEN_INDEX
+from slime_jax.generate import generate
+from slime_jax.models import slime
 
 GOLDEN_TOKENS = [12, 413, 249, 275, 327, 70, 186, 54]
 

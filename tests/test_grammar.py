@@ -9,7 +9,7 @@ import re
 import numpy as np
 import pytest
 
-from slime_tpu.serve.grammar import (ByteDFA, choices_regex, compile_regex,
+from slime_jax.serve.grammar import (ByteDFA, choices_regex, compile_regex,
                                      compile_token_dfa, json_schema_regex)
 
 PATTERNS = [

@@ -11,10 +11,10 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from slime_tpu.config import LLMConfig, SliMEConfig
-from slime_tpu.models import llama, slime
-from slime_tpu.generate import generate
-from slime_tpu.serve.batch_engine import BatchDecodeEngine, Request
+from slime_jax.config import LLMConfig, SliMEConfig
+from slime_jax.models import llama, slime
+from slime_jax.generate import generate
+from slime_jax.serve.batch_engine import BatchDecodeEngine, Request
 
 
 @pytest.fixture(scope="module")

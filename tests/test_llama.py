@@ -9,9 +9,9 @@ transformers = pytest.importorskip("transformers")
 import jax
 import jax.numpy as jnp
 
-from slime_tpu import checkpoint as ckpt
-from slime_tpu.config import LLMConfig
-from slime_tpu.models import llama
+from slime_jax import checkpoint as ckpt
+from slime_jax.config import LLMConfig
+from slime_jax.models import llama
 
 
 @pytest.fixture(scope="module")

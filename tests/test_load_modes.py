@@ -8,9 +8,9 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from slime_tpu import checkpoint as ckpt
-from slime_tpu.config import SliMEConfig
-from slime_tpu.models import slime
+from slime_jax import checkpoint as ckpt
+from slime_jax.config import SliMEConfig
+from slime_jax.models import slime
 
 
 @pytest.fixture(scope="module")
@@ -51,11 +51,11 @@ def test_quantized_load(saved):
     # embeddings stay fp; layer matmul weights are quant dicts
     assert not isinstance(loaded["llm"]["embed_tokens"], dict)
     qw = loaded["llm"]["layers"][0]["q_proj"]["weight"]
-    from slime_tpu.ops.quantization import is_quantized
+    from slime_jax.ops.quantization import is_quantized
     assert is_quantized(qw)
 
     # the quantized tree runs through the standard forward (quant-aware linear)
-    from slime_tpu.models import llama
+    from slime_jax.models import llama
     rng = np.random.default_rng(1)
     ids = rng.integers(5, cfg.llm.vocab_size, (1, 6)).astype(np.int32)
     lt = ckpt.to_jax({"llm": loaded["llm"]})["llm"]
@@ -71,7 +71,7 @@ def test_forward_from_loaded_matches(saved):
     loaded = ckpt.to_jax(ckpt.load_pretrained(base, cfg=cfg))
     rng = np.random.default_rng(0)
     ids = rng.integers(5, cfg.llm.vocab_size, (1, 8)).astype(np.int32)
-    from slime_tpu.models import llama
+    from slime_jax.models import llama
     l1, _ = llama.forward(params["llm"], llama.embed(params["llm"], jnp.asarray(ids)),
                           cfg.llm)
     l2, _ = llama.forward(loaded["llm"], llama.embed(loaded["llm"], jnp.asarray(ids)),
@@ -85,7 +85,7 @@ def test_lora_load_merges(saved, tmp_path):
     merged at load — NOT silently dropped."""
     import json
 
-    from slime_tpu.train import lora
+    from slime_jax.train import lora
 
     cfg, params, base = saved
     r, alpha = 4, 8
@@ -141,7 +141,7 @@ def test_quantize_lm_head_opt_in(saved):
     """--quantize-lm-head: lm_head becomes a quant dict (opt-in; the default
     matches bitsandbytes' llm_int8_skip_modules=[lm_head])."""
     cfg, params, base = saved
-    from slime_tpu.ops.quantization import is_quantized
+    from slime_jax.ops.quantization import is_quantized
     default = ckpt.load_pretrained(base, cfg=cfg, load_bits=8)
     assert not is_quantized(default["llm"]["lm_head"]["weight"])
     opted = ckpt.load_pretrained(base, cfg=cfg, load_bits=8,

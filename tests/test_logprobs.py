@@ -9,9 +9,9 @@ import pytest
 jnp = pytest.importorskip("jax.numpy")
 import jax  # noqa: E402
 
-from slime_tpu.config import SliMEConfig
-from slime_tpu.models import llama, slime
-from slime_tpu.serve.batch_engine import BatchDecodeEngine, Request
+from slime_jax.config import SliMEConfig
+from slime_jax.models import llama, slime
+from slime_jax.serve.batch_engine import BatchDecodeEngine, Request
 
 
 @pytest.fixture(scope="module")
@@ -78,7 +78,7 @@ def test_logprobs_openai_surface(setup):
 
     import requests as rq
 
-    from slime_tpu.serve.batched_worker import BatchedWorker, build_server
+    from slime_jax.serve.batched_worker import BatchedWorker, build_server
     from .toy_tokenizer import ToyTokenizer
 
     cfg, params = setup

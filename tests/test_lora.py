@@ -6,10 +6,10 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from slime_tpu.config import SliMEConfig
-from slime_tpu.constants import IGNORE_INDEX, IMAGE_TOKEN_INDEX
-from slime_tpu.models import slime
-from slime_tpu.train import lora
+from slime_jax.config import SliMEConfig
+from slime_jax.constants import IGNORE_INDEX, IMAGE_TOKEN_INDEX
+from slime_jax.models import slime
+from slime_jax.train import lora
 
 
 @pytest.fixture(scope="module")

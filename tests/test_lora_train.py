@@ -10,14 +10,14 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from slime_tpu import checkpoint as ckpt
-from slime_tpu.config import SliMEConfig
-from slime_tpu.constants import IGNORE_INDEX, IMAGE_TOKEN_INDEX
-from slime_tpu.models import slime
-from slime_tpu.ops.quantization import quantize_params
-from slime_tpu.train import lora
-from slime_tpu.train.optim import TrainConfig
-from slime_tpu.train.step import init_lora_train_state, make_lora_train_step
+from slime_jax import checkpoint as ckpt
+from slime_jax.config import SliMEConfig
+from slime_jax.constants import IGNORE_INDEX, IMAGE_TOKEN_INDEX
+from slime_jax.models import slime
+from slime_jax.ops.quantization import quantize_params
+from slime_jax.train import lora
+from slime_jax.train.optim import TrainConfig
+from slime_jax.train.step import init_lora_train_state, make_lora_train_step
 
 
 @pytest.fixture(scope="module")
@@ -125,7 +125,7 @@ def test_qlora_quantized_base(tiny, bits):
 def test_qlora_sharded_mesh(tiny):
     """QLoRA under a (fsdp=4, tp=2) mesh: quantized base leaves shard by the
     base weight's rule, adapters by the A/B rules, and the step runs."""
-    from slime_tpu.parallel import mesh as mesh_lib
+    from slime_jax.parallel import mesh as mesh_lib
 
     cfg, params = tiny
     qparams = dict(params)
@@ -183,7 +183,7 @@ def test_lora_checkpoint_roundtrip(tiny, tmp_path):
 def test_trainer_lora_resume(tiny, tmp_path):
     """Orbax train-state save/resume round-trips the LoRA trainable tree:
     a restarted Trainer picks up adapters + extras + Adam moments."""
-    from slime_tpu.train.trainer import RunConfig, Trainer
+    from slime_jax.train.trainer import RunConfig, Trainer
 
     cfg, params = tiny
     lora_state = lora.init_lora(jax.random.PRNGKey(1), params, r=4, alpha=8)
@@ -208,7 +208,7 @@ def test_trainer_lora_resume(tiny, tmp_path):
 def test_trainer_lora_mode(tiny, tmp_path):
     """Trainer(lora=...) end-to-end: trains, saves the LoRA layout, and
     params_host returns the merged view."""
-    from slime_tpu.train.trainer import RunConfig, Trainer
+    from slime_jax.train.trainer import RunConfig, Trainer
 
     cfg, params = tiny
     lora_state = lora.init_lora(jax.random.PRNGKey(1), params, r=4, alpha=8)

@@ -7,8 +7,8 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from slime_tpu.constants import IGNORE_INDEX
-from slime_tpu.ops.loss import (DEFAULT_LOSS_CHUNK, chunked_ce_mean,
+from slime_jax.constants import IGNORE_INDEX
+from slime_jax.ops.loss import (DEFAULT_LOSS_CHUNK, chunked_ce_mean,
                                 chunked_cross_entropy)
 
 
@@ -104,13 +104,13 @@ def test_default_chunk_shared_with_memory_plan():
     medium): both default to ops.loss.DEFAULT_LOSS_CHUNK."""
     import inspect
 
-    from slime_tpu.parallel import memory_plan as mp
+    from slime_jax.parallel import memory_plan as mp
 
     sig = inspect.signature(mp.plan)
     assert sig.parameters["loss_chunk"].default == "default"
     # and "default" resolves to the shared constant: chunk=DEFAULT_LOSS_CHUNK
     # equals passing it explicitly
-    from slime_tpu.config import LLMConfig
+    from slime_jax.config import LLMConfig
     cfg = LLMConfig(vocab_size=128, hidden_size=32, intermediate_size=64,
                     num_layers=4, num_heads=4, num_kv_heads=2, head_dim=8)
     a = mp.plan(cfg, batch=8, seq=2048)

@@ -6,7 +6,7 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from slime_tpu.models import mamba
+from slime_jax.models import mamba
 
 
 def _sequential_scan(u, delta, A, B, C, D):

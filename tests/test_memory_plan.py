@@ -5,8 +5,8 @@ claimed (fsdp=8, tp=4, pp=4) step actually lowers + partitions (VERDICT r2 #2)."
 import numpy as np
 import pytest
 
-from slime_tpu.config import LLMConfig
-from slime_tpu.parallel import memory_plan as mp
+from slime_jax.config import LLMConfig
+from slime_jax.parallel import memory_plan as mp
 
 
 def test_param_count_exact_8b():
@@ -26,9 +26,9 @@ def test_sharding_actually_divides():
     assert sharded.opt_moments == 2 * sharded.params * 2
 
 
-def test_70b_full_finetune_fits_v5e_128():
+def test_70b_full_finetune_fits_16gib_x128():
     """The headline claim: FULL-parameter 70B (bf16 weights, fp32 Adam + fp32
-    master) fits 16 GB v5e chips at (fsdp=8, tp=4, pp=4) = 128 chips."""
+    master) fits 16 GiB devices at (fsdp=8, tp=4, pp=4) = 128 devices."""
     p = mp.plan(LLMConfig.llama3_70b(), n_fsdp=8, n_model=4, n_pp=4,
                 batch=32, seq=2048)
     assert p.fits(16 * 2 ** 30), p.per_category_gb
@@ -57,7 +57,7 @@ def test_grad_accum_accounted():
     assert sh.grad_accum < acc.grad_accum / 4
 
     # plan_mm threads it through and adds the vision-state accumulator
-    from slime_tpu.config import SliMEConfig
+    from slime_jax.config import SliMEConfig
     mm = mp.plan_mm(SliMEConfig.slime_8b(), batch=8, n_fsdp=8,
                     grad_accum_steps=2)
     assert mm.grad_accum > sh.grad_accum
@@ -89,13 +89,13 @@ def test_more_chips_never_more_bytes():
     assert totals[0] >= totals[1] >= totals[2]
 
 
-def test_slime70b_full_multimodal_fits_v5e_128():
+def test_slime70b_full_multimodal_fits_16gib_x128():
     """The fit claim upgraded to SliME-70B, not Llama-70B (VERDICT r3 #4):
     vision tower + projector + sampler state AND their activations (crop
     batch sharded over data x fsdp x pp, per-block ViT remat, splice buffers)
-    budgeted on top of the pipelined decoder — still fits 16 GB v5e chips at
-    (fsdp=8, tp=4, pp=4) = 128 chips."""
-    from slime_tpu.config import SliMEConfig
+    budgeted on top of the pipelined decoder — still fits 16 GiB devices at
+    (fsdp=8, tp=4, pp=4) = 128 devices."""
+    from slime_jax.config import SliMEConfig
 
     cfg = SliMEConfig.slime_70b()
     p = mp.plan_mm(cfg, n_fsdp=8, n_model=4, n_pp=4, batch=32)
@@ -125,8 +125,8 @@ def test_slime70b_composed_mm_step_lowers():
 import jax, jax.numpy as jnp
 jax.config.update("jax_platforms", "cpu")
 assert len(jax.devices()) == 128, len(jax.devices())
-from slime_tpu.config import SliMEConfig
-from slime_tpu.parallel.composed import lower_composed_mm_abstract
+from slime_jax.config import SliMEConfig
+from slime_jax.parallel.composed import lower_composed_mm_abstract
 cfg = SliMEConfig.slime_70b()
 low = lower_composed_mm_abstract(cfg, n_fsdp=8, n_model=4, n_pp=4,
                                  batch=32, seq=256)
@@ -161,8 +161,8 @@ def test_70b_composed_step_lowers_and_partitions():
 import jax, jax.numpy as jnp
 jax.config.update("jax_platforms", "cpu")
 assert len(jax.devices()) == 128, len(jax.devices())
-from slime_tpu.config import LLMConfig
-from slime_tpu.parallel.composed import lower_composed_abstract
+from slime_jax.config import LLMConfig
+from slime_jax.parallel.composed import lower_composed_abstract
 cfg = LLMConfig.llama3_70b()
 low_bf16 = lower_composed_abstract(cfg, n_fsdp=8, n_model=4, n_pp=4,
                                    batch=32, seq=2048)

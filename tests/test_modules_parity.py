@@ -13,11 +13,11 @@ torch = pytest.importorskip("torch")
 import jax
 import jax.numpy as jnp
 
-from slime_tpu import checkpoint as ckpt
-from slime_tpu.config import SliMEConfig, VisionConfig
-from slime_tpu.models import projector as proj_mod
-from slime_tpu.models import resampler as res_mod
-from slime_tpu.models import sampler as samp_mod
+from slime_jax import checkpoint as ckpt
+from slime_jax.config import SliMEConfig, VisionConfig
+from slime_jax.models import projector as proj_mod
+from slime_jax.models import resampler as res_mod
+from slime_jax.models import sampler as samp_mod
 
 from .ref_loader import load_ref_model_modules
 
@@ -35,7 +35,7 @@ def _cfg(**kw):
     )
     base.update(kw)
     vision = VisionConfig(hidden_size=MM_HIDDEN)
-    from slime_tpu.config import LLMConfig
+    from slime_jax.config import LLMConfig
     llm = LLMConfig(hidden_size=LLM_HIDDEN)
     return SliMEConfig(llm=llm, vision=vision, **base)
 

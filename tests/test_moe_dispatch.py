@@ -6,9 +6,9 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from slime_tpu.config import LLMConfig
-from slime_tpu.models import llama
-from slime_tpu.ops.moe_dispatch import moe_ffn_sparse
+from slime_jax.config import LLMConfig
+from slime_jax.models import llama
+from slime_jax.ops.moe_dispatch import moe_ffn_sparse
 
 
 def _dense_oracle(x, w1, w2, w3, topi, topw):
@@ -127,9 +127,9 @@ def test_aux_loss_in_training(rng):
     """loss_fn adds coef*aux for MoE configs; the aux matches between scan and
     unrolled layer paths; dense configs are unaffected."""
     from dataclasses import replace
-    from slime_tpu.config import SliMEConfig
-    from slime_tpu.constants import IGNORE_INDEX, IMAGE_TOKEN_INDEX
-    from slime_tpu.models import slime
+    from slime_jax.config import SliMEConfig
+    from slime_jax.constants import IGNORE_INDEX, IMAGE_TOKEN_INDEX
+    from slime_jax.models import slime
 
     cfg0 = SliMEConfig.tiny()
     cfg = replace(cfg0, llm=replace(cfg0.llm, num_experts=4,

@@ -7,7 +7,7 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-from slime_tpu.ops.moe_ep import moe_ffn_ep
+from slime_jax.ops.moe_ep import moe_ffn_ep
 from tests.test_moe_dispatch import _dense_oracle
 
 

@@ -7,7 +7,7 @@ transformers = pytest.importorskip("transformers")
 
 import jax.numpy as jnp
 
-from slime_tpu.models import mpt
+from slime_jax.models import mpt
 
 
 def test_mpt_logits_parity():

@@ -11,11 +11,11 @@ import pytest
 jnp = pytest.importorskip("jax.numpy")
 import jax  # noqa: E402
 
-from slime_tpu.config import SliMEConfig
-from slime_tpu.generate import generate
-from slime_tpu.models import slime
-from slime_tpu.serve.batch_engine import BatchDecodeEngine, Request
-from slime_tpu.train import lora as lora_lib
+from slime_jax.config import SliMEConfig
+from slime_jax.generate import generate
+from slime_jax.models import slime
+from slime_jax.serve.batch_engine import BatchDecodeEngine, Request
+from slime_jax.train import lora as lora_lib
 
 
 @pytest.fixture(scope="module")

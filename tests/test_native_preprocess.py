@@ -5,9 +5,9 @@ import time
 import numpy as np
 import pytest
 
-from slime_tpu.data import native
-from slime_tpu.data.anyres import select_best_resolution_uhd
-from slime_tpu.data.image_ops import process_anyres_image_host
+from slime_jax.data import native
+from slime_jax.data.anyres import select_best_resolution_uhd
+from slime_jax.data.image_ops import process_anyres_image_host
 
 pytestmark = pytest.mark.skipif(not native.available(),
                                 reason="native library failed to build")
@@ -76,7 +76,7 @@ def test_native_faster_than_pil(rng):
 def test_u8_output_matches_f32_native(rng):
     """uint8 transport (normalize=False): native u8 crops, CLIP-normalized,
     match the native f32 crops to one uint8 quantum."""
-    from slime_tpu.data.image_ops import clip_normalize
+    from slime_jax.data.image_ops import clip_normalize
 
     img = _rand_img(rng, 500, 700)
     f32, m1, g1 = native.anyres_preprocess_native(img)
@@ -92,7 +92,7 @@ def test_u8_output_matches_f32_pil(rng):
     so normalize(u8 crops) is EXACTLY the f32 path on valid crops."""
     from PIL import Image
 
-    from slime_tpu.data.image_ops import clip_normalize, process_anyres_image_host
+    from slime_jax.data.image_ops import clip_normalize, process_anyres_image_host
 
     img = Image.fromarray(_rand_img(rng, 500, 700))
     f32, m1, _ = process_anyres_image_host(img, use_native=False)

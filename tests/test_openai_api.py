@@ -12,17 +12,17 @@ import pytest
 jnp = pytest.importorskip("jax.numpy")
 import jax  # noqa: E402
 
-from slime_tpu.config import SliMEConfig
-from slime_tpu.conversation import conv_templates
-from slime_tpu.models import slime
-from slime_tpu.serve.openai_api import render_messages
+from slime_jax.config import SliMEConfig
+from slime_jax.conversation import conv_templates
+from slime_jax.models import slime
+from slime_jax.serve.openai_api import render_messages
 
 
 @pytest.fixture(scope="module")
 def server():
     import threading
 
-    from slime_tpu.serve.batched_worker import BatchedWorker, build_server
+    from slime_jax.serve.batched_worker import BatchedWorker, build_server
     from .toy_tokenizer import ToyTokenizer
 
     cfg = SliMEConfig.tiny()

@@ -7,7 +7,7 @@ jnp = pytest.importorskip("jax.numpy")
 import jax  # noqa: E402
 import optax  # noqa: E402
 
-from slime_tpu.train.opt8 import (_dequantize, _quantize, adamw8bit,
+from slime_jax.train.opt8 import (_dequantize, _quantize, adamw8bit,
                                   scale_by_adam8bit, state_bytes)
 
 
@@ -105,11 +105,11 @@ def test_state_is_int8_and_small():
 @pytest.mark.slow  # heavy: compile-bound; runs in the full tier (make test)
 def test_trainer_integration_adamw8bit():
     """TrainConfig(optim=adamw8bit) trains the real tiny model: loss drops."""
-    from slime_tpu.config import SliMEConfig
-    from slime_tpu.constants import IGNORE_INDEX
-    from slime_tpu.models import slime
-    from slime_tpu.train.optim import TrainConfig, make_optimizer
-    from slime_tpu.train.step import make_train_step
+    from slime_jax.config import SliMEConfig
+    from slime_jax.constants import IGNORE_INDEX
+    from slime_jax.models import slime
+    from slime_jax.train.optim import TrainConfig, make_optimizer
+    from slime_jax.train.step import make_train_step
 
     cfg = SliMEConfig.tiny()
     params = slime.init(jax.random.PRNGKey(0), cfg)
@@ -138,11 +138,11 @@ def test_trainer_integration_adamw8bit():
 def test_70b_fit_with_8bit_adam_needs_fewer_chips():
     """opt_bytes=2 (the 8-bit Adam state, ~2.06 B/param) halves the 70B
     full-finetune mesh: with bf16-master training, (fsdp=4, tp=4, pp=4) =
-    64 v5e chips fit (12.5 GB/chip) where fp32-Adam does not (17.0 GB) —
+    64 devices of 16 GiB fit (12.5 GB each) where fp32-Adam does not (17.0 GB) —
     the optimizer state is the binding term. The conservative fp32-master
     fp32-Adam table stays at 128 chips (test_memory_plan.py)."""
-    from slime_tpu.config import LLMConfig
-    from slime_tpu.parallel import memory_plan as mp
+    from slime_jax.config import LLMConfig
+    from slime_jax.parallel import memory_plan as mp
 
     p = mp.plan(LLMConfig.llama3_70b(), n_fsdp=4, n_model=4, n_pp=4,
                 batch=32, seq=2048, opt_bytes=2, master_fp32=False)

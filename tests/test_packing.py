@@ -9,11 +9,11 @@ import pytest
 jnp = pytest.importorskip("jax.numpy")
 import jax  # noqa: E402
 
-from slime_tpu.config import SliMEConfig
-from slime_tpu.constants import IGNORE_INDEX
-from slime_tpu.data.packing import (collate_packed, pack_rows, packed_loader,
+from slime_jax.config import SliMEConfig
+from slime_jax.constants import IGNORE_INDEX
+from slime_jax.data.packing import (collate_packed, pack_rows, packed_loader,
                                     packing_efficiency)
-from slime_tpu.models import slime
+from slime_jax.models import slime
 
 
 @pytest.fixture(scope="module")

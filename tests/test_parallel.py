@@ -6,12 +6,12 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from slime_tpu.config import SliMEConfig
-from slime_tpu.constants import IGNORE_INDEX, IMAGE_TOKEN_INDEX
-from slime_tpu.models import slime
-from slime_tpu.parallel import mesh as mesh_lib
-from slime_tpu.train.optim import TrainConfig, label_tree
-from slime_tpu.train.step import init_train_state, make_train_step
+from slime_jax.config import SliMEConfig
+from slime_jax.constants import IGNORE_INDEX, IMAGE_TOKEN_INDEX
+from slime_jax.models import slime
+from slime_jax.parallel import mesh as mesh_lib
+from slime_jax.train.optim import TrainConfig, label_tree
+from slime_jax.train.step import init_train_state, make_train_step
 
 
 def _batch(cfg, B=8, S=12, seed=0):
@@ -155,10 +155,10 @@ def test_llama70b_sharding_rules_cover_all_leaves():
     """The production sharding rules produce valid, divisible PartitionSpecs for
     every leaf of the 70B flagship config — checked via abstract shapes only
     (no weight materialization)."""
-    from slime_tpu.config import SliMEConfig
+    from slime_jax.config import SliMEConfig
 
     from dataclasses import replace
-    from slime_tpu.config import LLMConfig
+    from slime_jax.config import LLMConfig
     cfg = replace(SliMEConfig.slime_8b(), llm=LLMConfig.llama3_70b())
     abstract = jax.eval_shape(
         lambda k: slime.init(k, cfg), jax.random.PRNGKey(0))

@@ -7,9 +7,9 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh
 
-from slime_tpu.config import LLMConfig
-from slime_tpu.models import llama
-from slime_tpu.parallel.pipeline import pipeline_forward, stack_layers
+from slime_jax.config import LLMConfig
+from slime_jax.models import llama
+from slime_jax.parallel.pipeline import pipeline_forward, stack_layers
 
 
 def _mesh(n):
@@ -96,8 +96,8 @@ def test_pp_train_step_loss_decreases(setup):
     """Pipeline-parallel training: 6 steps of overfit on one batch drop the loss;
     first-step loss matches the non-pipelined loss_fn value."""
     import optax
-    from slime_tpu.constants import IGNORE_INDEX
-    from slime_tpu.parallel.pipeline import (init_pp_train_state,
+    from slime_jax.constants import IGNORE_INDEX
+    from slime_jax.parallel.pipeline import (init_pp_train_state,
                                              make_pp_train_step, unstack_layers)
 
     cfg, params, _, _ = setup

@@ -2,7 +2,7 @@
 
 The reference's only training fault tolerance is HF Trainer periodic-checkpoint
 resume (SURVEY.md §5); a preempted spot VM loses everything since the last
-save_steps boundary. slime_tpu.train.preemption latches SIGTERM and the trainer
+save_steps boundary. slime_jax.train.preemption latches SIGTERM and the trainer
 writes a final state-<step> checkpoint at the next step boundary.
 """
 import os
@@ -14,13 +14,13 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from slime_tpu.config import SliMEConfig
-from slime_tpu.constants import IGNORE_INDEX, IMAGE_TOKEN_INDEX
-from slime_tpu.models import slime
-from slime_tpu.train import state_ckpt
-from slime_tpu.train.optim import TrainConfig
-from slime_tpu.train.preemption import PreemptionGuard
-from slime_tpu.train.trainer import RunConfig, Trainer
+from slime_jax.config import SliMEConfig
+from slime_jax.constants import IGNORE_INDEX, IMAGE_TOKEN_INDEX
+from slime_jax.models import slime
+from slime_jax.train import state_ckpt
+from slime_jax.train.optim import TrainConfig
+from slime_jax.train.preemption import PreemptionGuard
+from slime_jax.train.trainer import RunConfig, Trainer
 
 
 def _batch(cfg, B=2, S=10, seed=0):

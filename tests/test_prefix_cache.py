@@ -10,11 +10,11 @@ import pytest
 jnp = pytest.importorskip("jax.numpy")
 import jax  # noqa: E402
 
-from slime_tpu.config import SliMEConfig
-from slime_tpu.generate import generate
-from slime_tpu.models import slime
-from slime_tpu.serve.batch_engine import BatchDecodeEngine, Request
-from slime_tpu.serve.prefix_cache import PrefixCache
+from slime_jax.config import SliMEConfig
+from slime_jax.generate import generate
+from slime_jax.models import slime
+from slime_jax.serve.batch_engine import BatchDecodeEngine, Request
+from slime_jax.serve.prefix_cache import PrefixCache
 
 
 @pytest.fixture(scope="module")
@@ -181,7 +181,7 @@ def test_explicit_prefix_bypasses_auto_cache(setup):
 
 # ------------------------------------------------------- multimodal prompts
 def _mm_prompt(cfg, rng, pre_text: int, post_text: int):
-    from slime_tpu.constants import IMAGE_TOKEN_INDEX
+    from slime_jax.constants import IMAGE_TOKEN_INDEX
     t = cfg.vision.image_size
     n_crops = 1 + cfg.max_local_crops
     px = rng.standard_normal((n_crops, 3, t, t)).astype(np.float32)

@@ -6,8 +6,8 @@ import pytest
 torch = pytest.importorskip("torch")
 transformers = pytest.importorskip("transformers")
 
-from slime_tpu.constants import CLIP_IMAGE_MEAN, CLIP_IMAGE_STD
-from slime_tpu.data.image_ops import process_anyres_image_host
+from slime_jax.constants import CLIP_IMAGE_MEAN, CLIP_IMAGE_STD
+from slime_jax.data.image_ops import process_anyres_image_host
 
 from .ref_loader import load_ref_modules
 
@@ -29,7 +29,7 @@ def test_anyres_stack_matches_reference(processor, w, h, use_native, rng):
     from PIL import Image
 
     if use_native:
-        from slime_tpu.data import native
+        from slime_jax.data import native
         if not native.available():
             pytest.skip("native lib not built")
 

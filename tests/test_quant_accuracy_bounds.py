@@ -12,9 +12,9 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from slime_tpu.config import LLMConfig
-from slime_tpu.models import llama
-from slime_tpu.ops.quantization import quantize_weight
+from slime_jax.config import LLMConfig
+from slime_jax.models import llama
+from slime_jax.ops.quantization import quantize_weight
 
 H, I, V = 4096, 14336, 128256
 
@@ -85,7 +85,7 @@ def test_int8_lm_head_at_8b_vocab(layer_setup):
     x = x / jnp.linalg.norm(x, axis=-1, keepdims=True) * np.sqrt(H)  # rms ~1
     ref = x @ w.T
     qw = quantize_weight(w, 8)
-    from slime_tpu.ops.quantization import dequantize_weight
+    from slime_jax.ops.quantization import dequantize_weight
     got = x @ dequantize_weight(qw).T
 
     lref = jax.nn.log_softmax(ref, -1)
@@ -107,7 +107,7 @@ def test_int4_g128_layer_error_at_8b_width(layer_setup):
     the per-layer gain is the absmax statistic sqrt(2 ln 4096)/sqrt(2 ln 128)
     ~= 1.31x (measured 0.220 vs 0.298 = 1.35x); the band pins that ratio —
     materially better than per-row, still int4-class (not silently int8)."""
-    from slime_tpu.ops.quantization import quantize_weight_q4g
+    from slime_jax.ops.quantization import quantize_weight_q4g
 
     cfg, layer, x, cos, sin, ref = layer_setup
     ql = {k: ({"weight": quantize_weight_q4g(v["weight"], group=128)}

@@ -1,5 +1,5 @@
-"""Ring attention (sequence parallelism over the virtual 8-device mesh) vs the
-full-attention oracle."""
+"""Ring attention (sequence parallelism over the virtual 8-device mesh, and
+over 4 devices as on a four-card host) vs the full-attention oracle."""
 import numpy as np
 import pytest
 
@@ -7,8 +7,8 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-from slime_tpu.ops.flash_attention import reference_attention
-from slime_tpu.ops.ring_attention import ring_attention
+from slime_jax.ops.attention import reference_attention
+from slime_jax.ops.ring_attention import ring_attention
 
 
 def _mesh(n=8):
@@ -51,8 +51,8 @@ def test_ring_under_jit(rng):
 def test_llama_forward_with_ring(rng):
     """A full decoder forward with ring attention (sequence sharded over 8 devices)
     matches the standard forward."""
-    from slime_tpu.config import LLMConfig
-    from slime_tpu.models import llama
+    from slime_jax.config import LLMConfig
+    from slime_jax.models import llama
 
     cfg = LLMConfig(vocab_size=64, hidden_size=32, intermediate_size=64,
                     num_layers=2, num_heads=4, num_kv_heads=2, head_dim=8,
@@ -86,4 +86,32 @@ def test_ring_gqa_native(rng):
     out = ring_attention(jax.device_put(q, sh), jax.device_put(k, sh),
                          jax.device_put(v, sh), mesh=mesh, causal=True)
     np.testing.assert_allclose(np.asarray(out), np.asarray(ref),
+                               atol=2e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_ring_4_devices_matches_full(rng, causal):
+    """Four devices (the four-card mesh), GQA kv, under jit."""
+    mesh = _mesh(4)
+    B, H, KVH, S, D = 1, 4, 2, 32, 16
+    q = jnp.asarray(rng.standard_normal((B, H, S, D)).astype(np.float32))
+    k = jnp.asarray(rng.standard_normal((B, KVH, S, D)).astype(np.float32))
+    v = jnp.asarray(rng.standard_normal((B, KVH, S, D)).astype(np.float32))
+    ref = reference_attention(q, k, v, causal=causal)
+    out = jax.jit(lambda q, k, v: ring_attention(q, k, v, mesh=mesh,
+                                                 causal=causal))(q, k, v)
+    np.testing.assert_allclose(np.asarray(out), np.asarray(ref),
+                               atol=2e-5, rtol=1e-4)
+
+
+def test_ring_4_devices_mha(rng):
+    """KVH == H (MHA) degenerate grouping on four devices."""
+    mesh = _mesh(4)
+    B, H, S, D = 1, 2, 16, 8
+    q, k, v = (jnp.asarray(rng.standard_normal((B, H, S, D)).astype(np.float32))
+               for _ in range(3))
+    out = ring_attention(q, k, v, mesh=mesh, causal=True)
+    np.testing.assert_allclose(np.asarray(out),
+                               np.asarray(reference_attention(q, k, v,
+                                                              causal=True)),
                                atol=2e-5, rtol=1e-4)

@@ -10,10 +10,10 @@ import pytest
 jnp = pytest.importorskip("jax.numpy")
 import jax  # noqa: E402
 
-from slime_tpu.config import SliMEConfig
-from slime_tpu.generate import sample_token, sample_token_dynamic
-from slime_tpu.models import llama, slime
-from slime_tpu.serve.batch_engine import BatchDecodeEngine, Request
+from slime_jax.config import SliMEConfig
+from slime_jax.generate import sample_token, sample_token_dynamic
+from slime_jax.models import llama, slime
+from slime_jax.serve.batch_engine import BatchDecodeEngine, Request
 
 
 @pytest.fixture(scope="module")

@@ -13,11 +13,11 @@ requests = pytest.importorskip("requests")
 
 import jax
 
-from slime_tpu.config import SliMEConfig
-from slime_tpu.models import slime
-from slime_tpu.serve.controller import Controller, build_server as build_controller
-from slime_tpu.serve.model_worker import ModelWorker, build_server as build_worker
-from slime_tpu.serve.protocol import iter_stream_response
+from slime_jax.config import SliMEConfig
+from slime_jax.models import slime
+from slime_jax.serve.controller import Controller, build_server as build_controller
+from slime_jax.serve.model_worker import ModelWorker, build_server as build_worker
+from slime_jax.serve.protocol import iter_stream_response
 
 from .toy_tokenizer import ToyTokenizer
 
@@ -130,7 +130,7 @@ def test_two_image_generation(stack):
 
 def test_multi_worker_dispatch():
     """shortest_queue picks the least-loaded worker; lottery respects speed=0."""
-    from slime_tpu.serve.controller import Controller
+    from slime_jax.serve.controller import Controller
 
     c = Controller("shortest_queue")
     c.register_worker("http://w1", False, {"model_names": ["m"], "speed": 1,
@@ -153,14 +153,14 @@ def test_multi_worker_dispatch():
 
 
 def test_worker_expiry():
-    from slime_tpu.serve.controller import Controller
+    from slime_jax.serve.controller import Controller
     c = Controller("shortest_queue")
     c.register_worker("http://dead", True, {"model_names": ["m"], "speed": 1,
                                             "queue_length": 0})
     # simulate heartbeat timeout
     c.workers["http://dead"].last_heart_beat = 0
     import time as _t
-    from slime_tpu.constants import CONTROLLER_HEART_BEAT_EXPIRATION
+    from slime_jax.constants import CONTROLLER_HEART_BEAT_EXPIRATION
     expire = _t.time() - CONTROLLER_HEART_BEAT_EXPIRATION
     with c.lock:
         dead = [n for n, w in c.workers.items()
@@ -178,7 +178,7 @@ def test_worker_expiry():
 # ---------------------------------------------------------------------------
 
 def test_gradio_get_model_list(stack):
-    from slime_tpu.serve import gradio_web_server as gws
+    from slime_jax.serve import gradio_web_server as gws
 
     cport, wport, cfg, tok = stack
     assert gws.get_model_list(f"http://localhost:{cport}") == ["slime-tiny"]
@@ -187,7 +187,7 @@ def test_gradio_get_model_list(stack):
 def test_gradio_save_image_and_log(tmp_path, monkeypatch):
     from PIL import Image
 
-    from slime_tpu.serve import gradio_web_server as gws
+    from slime_jax.serve import gradio_web_server as gws
 
     img = Image.new("RGB", (32, 20), (200, 10, 10))
     b64 = gws.save_image(img, out_dir=str(tmp_path))
@@ -211,7 +211,7 @@ def test_gradio_template_routing():
     """Per-model conversation-template selection, the add_text logic
     (gradio_web_server.py:154-176): llama3 names route to the llama3 template,
     image goes in only on the first turn."""
-    from slime_tpu.conversation import conv_mode_from_model_name, conv_templates
+    from slime_jax.conversation import conv_mode_from_model_name, conv_templates
 
     mode = conv_mode_from_model_name("slime-llama3-8b")
     assert mode == "llama3"
@@ -225,8 +225,8 @@ def test_gradio_template_routing():
 def test_gradio_stream_chat_against_live_stack(stack):
     """stream_chat drives the controller's /worker_generate_stream proxy and
     yields cumulative partial texts."""
-    from slime_tpu.conversation import conv_templates
-    from slime_tpu.serve import gradio_web_server as gws
+    from slime_jax.conversation import conv_templates
+    from slime_jax.serve import gradio_web_server as gws
 
     cport, wport, cfg, tok = stack
     conv = conv_templates["v1"].copy()
@@ -237,16 +237,16 @@ def test_gradio_stream_chat_against_live_stack(stack):
                                  max_new_tokens=4))
     assert texts, "no streamed chunks"
     assert all(isinstance(t, str) for t in texts)
-    from slime_tpu.serve.protocol import SERVER_ERROR_MSG
+    from slime_jax.serve.protocol import SERVER_ERROR_MSG
     assert texts[-1] != SERVER_ERROR_MSG
 
 
 def test_gradio_stream_chat_error_path(tmp_path, monkeypatch):
     """Unreachable controller -> the SERVER_ERROR_MSG sentinel, and the chat
     is still logged."""
-    from slime_tpu.conversation import conv_templates
-    from slime_tpu.serve import gradio_web_server as gws
-    from slime_tpu.serve.protocol import SERVER_ERROR_MSG
+    from slime_jax.conversation import conv_templates
+    from slime_jax.serve import gradio_web_server as gws
+    from slime_jax.serve.protocol import SERVER_ERROR_MSG
 
     monkeypatch.setattr(gws, "get_conv_log_filename",
                         lambda: str(tmp_path / "conv.json"))
@@ -261,7 +261,7 @@ def test_gradio_stream_chat_error_path(tmp_path, monkeypatch):
 def test_gradio_build_demo_gate():
     """Without gradio installed, build_demo raises the documented ImportError
     (the HTTP API stays functional)."""
-    from slime_tpu.serve import gradio_web_server as gws
+    from slime_jax.serve import gradio_web_server as gws
     try:
         import gradio  # noqa: F401
         pytest.skip("gradio installed here; gate not exercisable")
@@ -275,7 +275,7 @@ def test_moderation_hook(monkeypatch):
     """violates_moderation (reference llava/utils.py:102-120): no-op without an
     API key; flags via the API response when a key is present; fails open on
     network errors."""
-    from slime_tpu.serve import gradio_web_server as gws
+    from slime_jax.serve import gradio_web_server as gws
 
     monkeypatch.delenv("OPENAI_API_KEY", raising=False)
     assert gws.violates_moderation("anything") is False  # zero-egress default

@@ -11,7 +11,7 @@ import pytest
 jnp = pytest.importorskip("jax.numpy")
 import jax  # noqa: E402
 
-from slime_tpu.serve.speculative import rejection_round, warp_probs
+from slime_jax.serve.speculative import rejection_round, warp_probs
 
 
 def _tv(counts, p):
@@ -126,9 +126,9 @@ def test_warp_probs_matches_sampler_semantics():
 
 
 # --------------------------------------------------------------- engine level
-from slime_tpu.config import SliMEConfig
-from slime_tpu.models import llama, slime
-from slime_tpu.serve.batch_engine import BatchDecodeEngine, Request
+from slime_jax.config import SliMEConfig
+from slime_jax.models import llama, slime
+from slime_jax.serve.batch_engine import BatchDecodeEngine, Request
 
 
 @pytest.fixture(scope="module")

@@ -6,10 +6,10 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from slime_tpu.config import SliMEConfig
-from slime_tpu.generate import generate, trim_at_eos
-from slime_tpu.models import slime
-from slime_tpu.serve.speculative import speculative_generate
+from slime_jax.config import SliMEConfig
+from slime_jax.generate import generate, trim_at_eos
+from slime_jax.models import slime
+from slime_jax.serve.speculative import speculative_generate
 
 
 @pytest.fixture(scope="module")
@@ -81,7 +81,7 @@ def test_full_acceptance_emits_bonus(models):
 def test_device_loop_matches_host_loop(models):
     """The on-device lax.while_loop variant must emit exactly what the
     host-driven loop (and thus the target's own greedy decode) emits."""
-    from slime_tpu.serve.speculative import speculative_generate_device
+    from slime_jax.serve.speculative import speculative_generate_device
     cfg, target, _, draft_bad = models
     rng = np.random.default_rng(4)
     ids = rng.integers(5, cfg.llm.vocab_size, (1, 6)).astype(np.int32)
@@ -95,7 +95,7 @@ def test_device_loop_matches_host_loop(models):
 
 
 def test_device_loop_full_acceptance(models):
-    from slime_tpu.serve.speculative import speculative_generate_device
+    from slime_jax.serve.speculative import speculative_generate_device
     cfg, target, draft, _ = models
     rng = np.random.default_rng(5)
     ids = rng.integers(5, cfg.llm.vocab_size, (1, 7)).astype(np.int32)

@@ -8,7 +8,7 @@ import types
 
 import pytest
 
-from slime_tpu.eval import sqa_prompt as sp
+from slime_jax.eval import sqa_prompt as sp
 
 _REF_PATH = "/root/reference/scripts/convert_sqa_to_llava_base_prompt.py"
 

@@ -2,7 +2,7 @@
 continuous-batching engine produce the same greedy tokens sharded as unsharded.
 
 This is the serving-side counterpart of the Megatron TP train sharding — one
-engine serving a model wider than a single chip (the 70B serving story). The
+engine serving a model wider than a single device (the 70B serving story). The
 reference has no equivalent (one whole model per GPU worker,
 llava/serve/model_worker.py)."""
 import numpy as np
@@ -11,12 +11,12 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from slime_tpu.config import SliMEConfig
-from slime_tpu.constants import IMAGE_TOKEN_INDEX
-from slime_tpu.generate import generate
-from slime_tpu.models import slime
-from slime_tpu.parallel import mesh as mesh_lib
-from slime_tpu.serve.batch_engine import BatchDecodeEngine, Request
+from slime_jax.config import SliMEConfig
+from slime_jax.constants import IMAGE_TOKEN_INDEX
+from slime_jax.generate import generate
+from slime_jax.models import slime
+from slime_jax.parallel import mesh as mesh_lib
+from slime_jax.serve.batch_engine import BatchDecodeEngine, Request
 
 
 @pytest.fixture(scope="module")

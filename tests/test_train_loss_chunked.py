@@ -13,9 +13,9 @@ import jax
 import jax.numpy as jnp
 from jax.flatten_util import ravel_pytree
 
-from slime_tpu.config import LLMConfig, SliMEConfig
-from slime_tpu.constants import IGNORE_INDEX, IMAGE_TOKEN_INDEX
-from slime_tpu.models import slime
+from slime_jax.config import LLMConfig, SliMEConfig
+from slime_jax.constants import IGNORE_INDEX, IMAGE_TOKEN_INDEX
+from slime_jax.models import slime
 
 
 def _mm_batch(cfg, B=2, S=12, seed=0):
@@ -103,7 +103,7 @@ def test_packed_loss_chunked_matches_reference_shift_mask(tiny):
     assert int(mc["n_target_tokens"]) == int(md["n_target_tokens"])
 
     # oracle: dense full-logit log_softmax with the explicit reference mask
-    from slime_tpu.models import llama
+    from slime_jax.models import llama
     emb = llama.embed(params["llm"], batch["input_ids"])
     logits = llama.forward(params["llm"], emb, cfg.llm,
                            positions=batch["positions"],
@@ -149,8 +149,8 @@ def test_sft_width_step_memory_drops_by_logits_term():
     half the [B,S,V] fp32 logits term (VERDICT r3 next #1 'done' criterion)."""
     import optax
 
-    from slime_tpu.train.optim import TrainConfig
-    from slime_tpu.train.step import make_train_step
+    from slime_jax.train.optim import TrainConfig
+    from slime_jax.train.step import make_train_step
 
     llm = LLMConfig(vocab_size=128256, hidden_size=64, intermediate_size=128,
                     num_layers=2, num_heads=4, num_kv_heads=2, head_dim=16,
@@ -180,8 +180,8 @@ def test_sft_width_step_memory_drops_by_logits_term():
 def test_head_logits_quant_and_lora():
     """ops.loss._head_logits composes with a quantized head weight and a LoRA
     adapter exactly like the decode path's layers.linear."""
-    from slime_tpu.ops.loss import _head_logits, chunked_ce_mean
-    from slime_tpu.ops.quantization import dequantize_weight, quantize_weight
+    from slime_jax.ops.loss import _head_logits, chunked_ce_mean
+    from slime_jax.ops.quantization import dequantize_weight, quantize_weight
 
     r = np.random.default_rng(3)
     B, S, H, V, rank = 1, 8, 16, 32, 4

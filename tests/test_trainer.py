@@ -10,12 +10,12 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from slime_tpu import checkpoint as ckpt
-from slime_tpu.config import SliMEConfig
-from slime_tpu.constants import IGNORE_INDEX, IMAGE_TOKEN_INDEX
-from slime_tpu.models import slime
-from slime_tpu.train.optim import TrainConfig
-from slime_tpu.train.trainer import RunConfig, Trainer, run_stage
+from slime_jax import checkpoint as ckpt
+from slime_jax.config import SliMEConfig
+from slime_jax.constants import IGNORE_INDEX, IMAGE_TOKEN_INDEX
+from slime_jax.models import slime
+from slime_jax.train.optim import TrainConfig
+from slime_jax.train.trainer import RunConfig, Trainer, run_stage
 
 
 def _batches(cfg, n, B=4, S=12, seed=0):
@@ -151,7 +151,7 @@ def test_resume_from_state_checkpoint(tiny, tmp_path):
 def test_async_save_roundtrip(tmp_path):
     """async_save=True persists a restorable train state (wait_for_saves joins)."""
     import jax
-    from slime_tpu.train import state_ckpt
+    from slime_jax.train import state_ckpt
 
     state = {"step": jax.numpy.asarray(3),
              "params": {"w": jax.numpy.ones((4, 4))}}

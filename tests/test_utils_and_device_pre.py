@@ -6,9 +6,9 @@ import os
 import numpy as np
 import pytest
 
-from slime_tpu import utils
-from slime_tpu.data import anyres
-from slime_tpu.data.image_ops import make_device_anyres_fn, process_anyres_image_host
+from slime_jax import utils
+from slime_jax.data import anyres
+from slime_jax.data.image_ops import make_device_anyres_fn, process_anyres_image_host
 
 
 def test_metrics_logger(tmp_path):

@@ -11,9 +11,9 @@ import pytest
 
 import jax
 
-from slime_tpu import checkpoint as ckpt
-from slime_tpu.config import SliMEConfig
-from slime_tpu.models import slime
+from slime_jax import checkpoint as ckpt
+from slime_jax.config import SliMEConfig
+from slime_jax.models import slime
 
 _SCRIPT = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                        "scripts", "verify_released_weights.py")
@@ -35,7 +35,7 @@ def exported(tmp_path_factory):
     ckpt.save_checkpoint(d, params, cfg)
     cfg.save(d)
     # Record the golden here so every test in this module is self-sufficient
-    # (they run verify without --record and need slime_tpu_golden.npz).
+    # (they run verify without --record and need slime_jax_golden.npz).
     assert _load_module().main([d, "--record", "--skip-quant"]) == 0
     return d
 
@@ -44,7 +44,7 @@ def exported(tmp_path_factory):
 def test_record_then_verify_passes(exported, capsys):
     mod = _load_module()
     assert mod.main([exported, "--record", "--skip-quant"]) == 0
-    assert os.path.exists(os.path.join(exported, "slime_tpu_golden.npz"))
+    assert os.path.exists(os.path.join(exported, "slime_jax_golden.npz"))
     assert mod.main([exported, "--skip-quant"]) == 0
     out = capsys.readouterr().out
     assert "[PASS] logit_parity" in out

@@ -7,9 +7,9 @@ transformers = pytest.importorskip("transformers")
 
 import jax.numpy as jnp
 
-from slime_tpu import checkpoint as ckpt
-from slime_tpu.config import VisionConfig
-from slime_tpu.models import vit
+from slime_jax import checkpoint as ckpt
+from slime_jax.config import VisionConfig
+from slime_jax.models import vit
 
 
 @pytest.fixture(scope="module")

@@ -1,10 +1,9 @@
-"""W8A8 fused matmul: Pallas kernel (interpret) vs the XLA reference, plus the
-quantized ViT tower's accuracy bound vs the fp32 tower.
+"""W8A8 matmul vs a numpy integer reference, plus the quantized ViT tower's
+accuracy bound vs the fp32 tower.
 
 The reference runs the CLIP tower in fp16 (llava/model/multimodal_encoder/
-clip_encoder.py:46-58); W8A8 is a TPU-native opt-in that trades a bounded
-feature error (measured ~2% relative, scripts/bench_w8a8_vit.py) for the
-MXU's 2x int8 rate at the compute-bound encode batch.
+clip_encoder.py:46-58); W8A8 is an opt-in that trades a bounded feature error
+(~2% relative) for half the vision weight memory.
 """
 import numpy as np
 import pytest
@@ -12,35 +11,41 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from slime_tpu.ops.quantization import quantize_weight
-from slime_tpu.ops.w8a8_matmul import w8a8_matmul, w8a8_matmul_ref, w8a8_linear
+from slime_jax.ops.quantization import quantize_weight
+from slime_jax.ops.w8a8_matmul import w8a8_linear, w8a8_matmul
+
+
+def _int_oracle(x, qw, bias=None):
+    """Same per-token round-to-nearest quant, exact int64 products in numpy."""
+    xf = np.asarray(x, np.float32)
+    am = np.max(np.abs(xf), axis=-1, keepdims=True)
+    xs = np.where(am > 0, am * np.float32(1.0 / 127.0), np.float32(1.0))
+    xq = np.round(xf / xs).astype(np.int64)
+    acc = xq @ np.asarray(qw["q"], np.int64).T
+    y = acc.astype(np.float64) * xs * np.asarray(qw["scale"])[:, 0][None, :]
+    return y if bias is None else y + np.asarray(bias, np.float64)[None, :]
 
 
 @pytest.mark.parametrize("M,K,OUT", [(256, 128, 128), (300, 256, 192)])
-def test_kernel_matches_ref(rng, M, K, OUT):
-    """Interpret-mode kernel matches the XLA reference to fp32 FMA-reassociation
-    noise (the quant + int32 accumulate are identical by construction; only the
-    f32 epilogue's multiply/add fusion differs between compilation contexts) —
-    including uneven M tiles."""
+def test_matmul_matches_int_oracle(rng, M, K, OUT):
+    """The quant + int32 accumulate are exact; only the f32 epilogue rounds."""
     w = jnp.asarray(rng.standard_normal((OUT, K)).astype(np.float32)) * 0.05
     qw = quantize_weight(w, 8)
     x = jnp.asarray(rng.standard_normal((M, K)).astype(np.float32))
     b = jnp.asarray(rng.standard_normal((OUT,)).astype(np.float32))
-    ref = w8a8_matmul_ref(x, qw, b)
-    out = w8a8_matmul(x, qw, b, block_rows=128, block_out=64, interpret=True)
-    np.testing.assert_allclose(np.asarray(out), np.asarray(ref),
+    out = w8a8_matmul(x, qw, b)
+    np.testing.assert_allclose(np.asarray(out), _int_oracle(x, qw, b),
                                atol=1e-5, rtol=1e-4)
 
 
-def test_kernel_bf16_output_dtype(rng):
+def test_matmul_bf16_output_dtype(rng):
     x = jnp.asarray(rng.standard_normal((128, 128)), jnp.bfloat16)
     qw = quantize_weight(
         jnp.asarray(rng.standard_normal((128, 128)).astype(np.float32)) * 0.05, 8)
-    out = w8a8_matmul(x, qw, interpret=True)
+    out = w8a8_matmul(x, qw)
     assert out.dtype == jnp.bfloat16
-    ref = w8a8_matmul_ref(x, qw)
     np.testing.assert_allclose(np.asarray(out, np.float32),
-                               np.asarray(ref, np.float32),
+                               _int_oracle(np.asarray(x, np.float32), qw),
                                atol=1e-2, rtol=1e-2)
 
 
@@ -53,7 +58,7 @@ def test_w8a8_accuracy_vs_fp(rng):
     x = jnp.asarray(rng.standard_normal((64, K)).astype(np.float32))
     qw = quantize_weight(w, 8)
     ref = x @ w.T
-    out = w8a8_matmul_ref(x, qw).astype(jnp.float32)
+    out = w8a8_matmul(x, qw).astype(jnp.float32)
     rel = float(jnp.linalg.norm(out - ref) / jnp.linalg.norm(ref))
     assert rel < 0.02, rel
 
@@ -65,9 +70,9 @@ def test_w8a8_linear_leading_dims(rng):
          "bias": jnp.asarray(rng.standard_normal((64,)).astype(np.float32))}
     out = w8a8_linear(p, x)
     assert out.shape == (2, 3, 64)
-    ref = w8a8_matmul_ref(x.reshape(-1, 128), p["weight"], p["bias"])
-    np.testing.assert_allclose(np.asarray(out).reshape(-1, 64),
-                               np.asarray(ref), atol=1e-5, rtol=1e-4)
+    ref = _int_oracle(np.asarray(x).reshape(-1, 128), p["weight"], p["bias"])
+    np.testing.assert_allclose(np.asarray(out).reshape(-1, 64), ref,
+                               atol=1e-5, rtol=1e-4)
 
 
 @pytest.mark.slow  # heavy: compile-bound; runs in the full tier (make test)
@@ -75,8 +80,8 @@ def test_quantized_vit_feature_error_bounded(rng):
     """quantize_tower + the W8A8 path stays within 4% relative feature error
     of the fp32 tower on a small ViT — the CI guard for the vision quant
     accuracy budget (docs/Serving.md; measured 1.9% at CLIP-L scale)."""
-    from slime_tpu.config import VisionConfig
-    from slime_tpu.models import vit
+    from slime_jax.config import VisionConfig
+    from slime_jax.models import vit
 
     cfg = VisionConfig(image_size=56, patch_size=14, hidden_size=128,
                        intermediate_size=256, num_layers=3, num_heads=4,
